@@ -1,0 +1,595 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``diffbinaural_tpu_torch/ops/csrc`` with nvcc,
+holds each against its plain PyTorch version on the card at the shapes the
+inference path gives it, checks the full-width path through the kernels
+against the same path through the plain versions (float32, two DDIM steps),
+then runs the 10 s clip at full width in bfloat16 (861 frames, 21 windows in
+3 groups of 8, DDIM-25, BigVGAN vocoder; random weights from a seed) and
+checks the launch counts.  Every phase prints one JSON line; any failure
+exits non-zero.  There is no CPU fallback: without a CUDA device the script
+fails before printing a result.
+
+    python3 chip_smoke.py --trace 10
+
+also traces 10 UNet calls and one vocoder pass of that clip with
+``torch.profiler`` and prints, for each, the wall time, the summed device
+time, the device's busy share and the ten kernels with the most device time.
+
+Float32 comparisons run with TF32 switched off for both matmuls and cuDNN
+convolutions, so the plain versions are true float32 references.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# Published dense peaks of one H100 SXM (NVIDIA data sheet); a card whose
+# power limit is below 700 W runs under them.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+CLIP_SECONDS, SR, HOP, WINDOW, UNET_BATCH, DDIM_STEPS = 10.0, 22050, 256, 80, 8, 25
+BF16_UNET_TOL = 5e-2  # of the output's scale, see phase_main_path_check
+EXPECTED_LAUNCHES = {"flash_sdpa": 300, "fused_alias_free_snake": 97,
+                     "fused_snake_conv": 12}
+SOURCES = {
+    "flash_sdpa": ("diffbinaural_tpu_torch/ops/csrc/flash_d32.cu",
+                   "diffbinaural_tpu/ops/flash_d32.py:175"),
+    "fused_alias_free_snake": (
+        "diffbinaural_tpu_torch/ops/csrc/alias_free_act.cu",
+        "diffbinaural_tpu/ops/alias_free_act.py:607"),
+    "fused_snake_conv": ("diffbinaural_tpu_torch/ops/csrc/snake_conv.cu",
+                         "diffbinaural_tpu/ops/snake_conv.py:166"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def time_ms(fn, warmup: int = 2, iters: int = 10) -> float:
+    """Median over ``iters`` single calls, each between two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_run_ms(fn, calls: int, repeats: int = 3) -> float:
+    """Per-call time of ``calls`` back-to-back calls between two CUDA events
+    (the host enqueues ahead, as it does in the pipeline); median of
+    ``repeats`` such runs after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def rand(gen, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def dt_name(dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "fp32"
+
+
+# ---------------------------------------------------------------- phases
+
+
+def phase_device() -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    from diffbinaural_tpu_torch.ops import _build
+
+    nvcc_out = subprocess.run([_build._nvcc(), "--version"],
+                              capture_output=True, text=True, check=True).stdout
+    nvcc = next((ln.strip() for ln in nvcc_out.splitlines() if "release" in ln),
+                nvcc_out.strip())
+    info = {"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+            "cuda": torch.version.cuda, "nvcc": nvcc,
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+    emit(info)
+    return info
+
+
+def phase_build() -> None:
+    from diffbinaural_tpu_torch.ops import _build
+
+    t0 = time.time()
+    logs = _build.build_all(verbose=True)
+    for name in _build.KERNELS:
+        _build.load(name)
+    ptxas = {name: [ln for ln in log.splitlines() if "registers" in ln
+                    or "spill" in ln][:8] for name, log in logs.items()}
+    emit({"phase": "build", "seconds": round(time.time() - t0, 2),
+          "libraries": sorted(p.name for p in _build.BUILD_DIR.glob("*.so")),
+          "ptxas": ptxas})
+
+
+def _compare(name, case, got, want, tol, relative, rms_tol=None):
+    """Max abs error of ``got`` against ``want``; fails above ``tol`` (times
+    max|want| when ``relative``).  With ``rms_tol`` the root-mean-square
+    error must also stay under ``rms_tol`` times the rms of ``want``."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name} {case}: shape/dtype {got.shape}/{got.dtype} vs "
+             f"{want.shape}/{want.dtype}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail(f"{name} {case}: non-finite output")
+    err = (g - w).abs().max().item()
+    scale = w.abs().max().item() if relative else 1.0
+    if err > tol * scale:
+        fail(f"{name} {case}: max_abs_err {err:.3e} > {tol:g} x {scale:.3g}")
+    if rms_tol is not None:
+        rel_rms = _rel_rms(g, w)
+        if rel_rms > rms_tol:
+            fail(f"{name} {case}: rms error {rel_rms:.3e} of the output's "
+                 f"rms > {rms_tol:g}")
+    return err
+
+
+def _rel_rms(got, want) -> float:
+    g, w = got.float(), want.float()
+    return ((g - w).square().mean().sqrt() / w.square().mean().sqrt()).item()
+
+
+def k1_cases():
+    return [(8, 4, 6400, 32), (8, 4, 1600, 32), (2, 4, 1000, 32)]
+
+
+def check_k1(gen, results):
+    """flash_sdpa vs its plain version.  float32: 2e-4 absolute (sums of N
+    terms in another order, exp2f vs exp).  bfloat16 runs another kernel
+    (tensor cores) and is held relative to the output, whose values are
+    small (an average of unit normals over ~N/3 keys): max error 2e-2 of
+    max|want| and rms error 1e-2 of the output's rms (both sides round the
+    probabilities and the output to bfloat16, the plain version also q)."""
+    from diffbinaural_tpu_torch.ops import flash_sdpa, sdpa_plain
+
+    for shape in k1_cases():
+        for dtype, tol, rel, rms_tol in ((torch.float32, 2e-4, False, None),
+                                         (torch.bfloat16, 2e-2, True, 1e-2)):
+            q, k, v = (rand(gen, shape, dtype) for _ in range(3))
+            scale = shape[-1] ** -0.5
+            got = flash_sdpa(q, k, v, scale)
+            want = sdpa_plain(q, k, v, scale)
+            err = _compare("flash_sdpa", (shape, dt_name(dtype)), got, want,
+                           tol, rel, rms_tol)
+            case = {"kernel": "flash_sdpa", "shape": list(shape),
+                    "dtype": dt_name(dtype), "max_err": err, "tol": tol,
+                    "tol_relative_to_output_scale": rel,
+                    "output_scale": want.float().abs().max().item(),
+                    "rms_err_of_output_rms": _rel_rms(got, want),
+                    "rms_tol": rms_tol}
+            if shape[2] >= 1600:
+                b, h, n, d = shape
+                case["ms"] = time_ms(lambda: flash_sdpa(q, k, v, scale))
+                case["plain_ms"] = time_ms(lambda: sdpa_plain(q, k, v, scale),
+                                           warmup=1, iters=10)
+                case["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+                flops = 4.0 * b * h * n * n * d
+                nbytes = 4.0 * b * h * n * d * q.element_size()
+                _bound(case, flops, nbytes, dt_name(dtype))
+            del got, want
+            results.append(case)
+
+
+def _bound(case, flops, nbytes, dtype_name):
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    case["bound_ms"] = max(t_ops, t_bytes)
+    case["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+
+
+K2_STAGES = [(768, 3444), (384, 13776), (192, 27552), (96, 55104),
+             (48, 110208), (24, 220416)]
+# per sample: two up-FIR phases (6 mul + 5 add + gain), two snakes (3 mul,
+# sine, add), one 12-tap down-FIR (12 mul + 11 add); the sine counts as one
+K2_OPS_PER_SAMPLE = 2 * 12 + 2 * 5 + 23
+
+
+def check_k2(gen, results):
+    """fused_alias_free_snake vs its plain version, all samples.  float32:
+    1e-5 (same float32 arithmetic, other summation order and another sine);
+    bfloat16: both round one float32 result to bfloat16 — 8e-3 of the
+    output's scale (two bfloat16 steps)."""
+    from diffbinaural_tpu_torch.ops import (alias_free_snake_plain,
+                                            fused_alias_free_snake)
+
+    for c, t in K2_STAGES + [(48, 1001)]:
+        for dtype, tol, rel in ((torch.float32, 1e-5, False),
+                                (torch.bfloat16, 8e-3, True)):
+            x = rand(gen, (2, c, t), dtype)
+            alpha = rand(gen, (c,), torch.float32, 0.3)
+            beta = rand(gen, (c,), torch.float32, 0.3)
+            got = fused_alias_free_snake(x, alpha, beta, True)
+            want = alias_free_snake_plain(x, alpha, beta, True)
+            err = _compare("fused_alias_free_snake", (c, t, dt_name(dtype)),
+                           got, want, tol, rel)
+            case = {"kernel": "fused_alias_free_snake", "shape": [2, c, t],
+                    "dtype": dt_name(dtype), "max_err": err, "tol": tol,
+                    "tol_relative_to_output_scale": rel}
+            if t != 1001:
+                case["ms"] = time_ms(
+                    lambda: fused_alias_free_snake(x, alpha, beta, True))
+                case["plain_ms"] = time_ms(
+                    lambda: alias_free_snake_plain(x, alpha, beta, True))
+                case["library_ms"] = None
+                n = 2.0 * c * t
+                _bound(case, K2_OPS_PER_SAMPLE * n,
+                       2 * n * x.element_size() + 8 * c, "fp32")
+            del got, want
+            results.append(case)
+
+
+def check_k3(gen, results):
+    """fused_snake_conv vs its plain version (plain activation +
+    ``F.conv1d``).  float32: 2e-4 of the output's scale (sums of 768*k terms
+    in another order); bfloat16: 2e-2 of the output's scale (the plain
+    version rounds the activation to bfloat16 before the convolution, the
+    kernel keeps it in float32)."""
+    from diffbinaural_tpu_torch.ops import fused_snake_conv, snake_conv_plain
+
+    c = 768
+    cases = [(2, 3444, k, d) for k in (3, 7) for d in (1, 3, 5)]
+    cases.append((1, 40, 7, 5))  # one tile that crosses both clip edges
+    for b, t, k, d in cases:
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+            x = rand(gen, (b, c, t), dtype)
+            alpha = rand(gen, (c,), torch.float32, 0.3)
+            beta = rand(gen, (c,), torch.float32, 0.3)
+            w = rand(gen, (c, c, k), dtype, 0.02)
+            bias = rand(gen, (c,), torch.float32, 0.1)
+            got = fused_snake_conv(x, alpha, beta, w, bias, d, True)
+            want = snake_conv_plain(x, alpha, beta, w, bias, d, True)
+            err = _compare("fused_snake_conv", (b, c, t, k, d, dt_name(dtype)),
+                           got, want, tol, relative=True)
+            case = {"kernel": "fused_snake_conv", "shape": [b, c, t], "k": k,
+                    "dilation": d, "dtype": dt_name(dtype), "max_err": err,
+                    "tol": tol, "tol_relative_to_output_scale": True}
+            if t == 3444:
+                case["ms"] = time_ms(
+                    lambda: fused_snake_conv(x, alpha, beta, w, bias, d, True))
+                case["plain_ms"] = time_ms(
+                    lambda: snake_conv_plain(x, alpha, beta, w, bias, d, True))
+                case["library_ms"] = None
+                flops = 2.0 * b * t * k * c * c + K2_OPS_PER_SAMPLE * b * c * t
+                nbytes = (2.0 * b * c * t + k * c * c) * x.element_size() + 12 * c
+                _bound(case, flops, nbytes, dt_name(dtype))
+            del got, want
+            results.append(case)
+
+
+def phase_kernels() -> list:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results: list = []
+    check_k2(gen, results)
+    check_k3(gen, results)
+    check_k1(gen, results)
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "cases": results})
+    return results
+
+
+# ------------------------------------------------------------- main path
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the model code to the plain PyTorch versions of the three ops
+    (a comparison aid of this script only: the package has no such switch)."""
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.models import attention, bigvgan
+
+    saved = (attention.flash_sdpa, bigvgan.fused_alias_free_snake,
+             bigvgan.fused_snake_conv)
+    attention.flash_sdpa = ops.sdpa_plain
+    bigvgan.fused_alias_free_snake = ops.alias_free_snake_plain
+    bigvgan.fused_snake_conv = ops.snake_conv_plain
+    try:
+        yield
+    finally:
+        (attention.flash_sdpa, bigvgan.fused_alias_free_snake,
+         bigvgan.fused_snake_conv) = saved
+
+
+def build_unet(dtype, seed):
+    from diffbinaural_tpu_torch import models
+
+    return models.build_unet(dtype=dtype, seed=seed)
+
+
+def build_models(dtype):
+    from diffbinaural_tpu_torch.models import build_vocoder
+
+    return build_unet(dtype, seed=0), build_vocoder(dtype=dtype, seed=1)
+
+
+def phase_main_path_check() -> None:
+    """Full-width UNet + vocoder in float32 (TF32 off): the path through the
+    kernels against the same path through the plain versions.  One UNet call
+    and 2 DDIM steps on one group of 8 windows, and the vocoder on a 2 s
+    stereo mel.  Tolerances: one UNet call 2e-4 of the output's scale (~40
+    layers, attention sums in another order); stage-1 output 2e-3 absolute
+    on values in [-1, 1] (two UNet calls whose random-weight output is ~100
+    times the clip range, so differences are amplified before the clip);
+    waveform 1e-3 of the output's scale (six upsampling stages, 768*k-term
+    sums in another order; random weights give a waveform far below 1, so
+    an absolute tolerance would say nothing).
+
+    Then the same UNet call in bfloat16, as the 10 s clip runs it, so that
+    the tensor-core attention kernel is held inside the model too: through
+    the kernels against through the plain versions, BF16_UNET_TOL of the
+    output's scale (every layer rounds to bfloat16, so a last-bit difference
+    in one attention output is carried and re-rounded through the rest of
+    the ~40 layers).  Each bfloat16 output's distance from the float32 one
+    is printed beside it: the kernels must not move the model further from
+    float32 than bfloat16 itself does."""
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.diffusion import GaussianDiffusion
+    unet, voc = build_models(torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    diffusion = GaussianDiffusion(image_size=WINDOW, timesteps=1000,
+                                  sampling_timesteps=2)
+    mono = torch.rand((UNET_BATCH, 1, WINDOW, WINDOW), generator=gen,
+                      device="cuda") * 2 - 1
+    feats = torch.randn((UNET_BATCH, 512), generator=gen, device="cuda")
+    noise = torch.randn((UNET_BATCH, 2, WINDOW, WINDOW), generator=gen,
+                        device="cuda")
+    mel = torch.randn((2, 80, 172), generator=gen, device="cuda") - 6.0
+
+    step = torch.full((UNET_BATCH,), 500, device="cuda", dtype=torch.int32)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        raw_k = unet(noise, step, (mono, feats, None))
+        wav_k = voc(mel)
+    pred_k = diffusion.ddim_sample(unet, (mono, feats), noise=noise)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    with plain_versions():
+        with torch.inference_mode():
+            raw_p = unet(noise, step, (mono, feats, None))
+            wav_p = voc(mel)
+        pred_p = diffusion.ddim_sample(unet, (mono, feats), noise=noise)
+    torch.cuda.synchronize()
+    if ops.launch_counts() != counts:
+        fail("plain_versions() launched a kernel")
+    if counts != {"flash_sdpa": 12, "fused_alias_free_snake": 97,
+                  "fused_snake_conv": 12}:
+        fail(f"main_path_check launch counts {counts}")
+    err_raw = _compare("main_path_check", "unet", raw_k, raw_p, 2e-4, True)
+    err_pred = _compare("main_path_check", "stage1", pred_k, pred_p, 2e-3, False)
+    err_wav = _compare("main_path_check", "vocoder", wav_k, wav_p, 1e-3, True)
+
+    unet16 = build_unet(dtype=torch.bfloat16, seed=0)  # the same weights
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        raw16_k = unet16(noise, step, (mono, feats, None))
+        torch.cuda.synchronize()
+        counts16 = ops.launch_counts()
+        with plain_versions():
+            raw16_p = unet16(noise, step, (mono, feats, None))
+    if counts16["flash_sdpa"] != 4:
+        fail(f"main_path_check bf16 launch counts {counts16}")
+    err16 = _compare("main_path_check", "unet bf16", raw16_k, raw16_p,
+                     BF16_UNET_TOL, True)
+    k_vs_fp32 = _rel_rms(raw16_k, raw_p)
+    p_vs_fp32 = _rel_rms(raw16_p, raw_p)
+    if k_vs_fp32 > 1.5 * p_vs_fp32:
+        fail(f"main_path_check unet bf16: through the kernels {k_vs_fp32:.3e} "
+             f"of float32's rms away from float32, through the plain "
+             f"versions {p_vs_fp32:.3e}")
+    emit({"phase": "main_path_check", "dtype": "fp32", "tf32": False,
+          "unet_max_err": err_raw, "unet_scale": raw_p.abs().max().item(),
+          "unet_tol_of_scale": 2e-4,
+          "stage1_max_err": err_pred, "stage1_tol": 2e-3,
+          "vocoder_max_err": err_wav,
+          "vocoder_scale": wav_p.abs().max().item(),
+          "vocoder_tol_of_scale": 1e-3, "launches": counts,
+          "unet_bf16_max_err": err16,
+          "unet_bf16_scale": raw16_p.float().abs().max().item(),
+          "unet_bf16_tol_of_scale": BF16_UNET_TOL,
+          "unet_bf16_rms_err_of_rms": _rel_rms(raw16_k, raw16_p),
+          "unet_bf16_kernels_vs_fp32_rms": k_vs_fp32,
+          "unet_bf16_plain_vs_fp32_rms": p_vs_fp32})
+    del unet, voc, unet16
+    torch.cuda.empty_cache()
+
+
+def trace(part: str, fn, calls: int) -> dict:
+    """Device time by kernel over ``calls`` calls of ``fn``, from
+    ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: the host-side operator rows carry the same
+    # device time once more
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(r[1] for r in rows)
+    if device_ms <= 0:
+        fail("trace: the profiler reported no device time")
+    rows.sort(key=lambda r: -r[1])
+    return {
+        "phase": "trace", "part": part, "calls": calls,
+        "wall_ms_per_call": wall_ms / calls,
+        "device_ms_per_call": device_ms / calls,
+        "device_busy_share": device_ms / wall_ms,
+        "device_kernels_per_call": sum(r[2] for r in rows) / calls,
+        "top": [{"kernel": k[:80], "ms_per_call": ms / calls,
+                 "launches_per_call": n / calls} for k, ms, n in rows[:10]],
+    }
+
+
+def phase_main_path(trace_steps: int = 0) -> dict:
+    """The 10 s clip at full width in bfloat16, through the entry point a
+    user calls (``BinauralPipeline``).  With ``trace_steps`` > 0 that many
+    UNet calls and one vocoder pass are also traced."""
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.infer.pipeline import BinauralPipeline
+
+    total_frames = int(CLIP_SECONDS * SR) // HOP  # 861
+    unet, voc = build_models(torch.bfloat16)
+    pipe = BinauralPipeline(unet, voc, total_frames, unet_batch=UNET_BATCH,
+                            sampling_timesteps=DDIM_STEPS)
+    rng = np.random.default_rng(0)
+
+    def fresh_clip():
+        mono = rng.standard_normal((1, 80, total_frames)).astype(np.float32) - 6.0
+        feats = rng.standard_normal((pipe.n_windows, 512)).astype(np.float32)
+        return mono, feats
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    wav = pipe(*fresh_clip(), generator=gen)  # warm-up clip
+    torch.cuda.synchronize()
+
+    def timed_clip():
+        mono, feats = fresh_clip()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe(mono, feats, generator=gen)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    wav, first = timed_clip()
+    counts = ops.launch_counts()
+    runs = [first] + [timed_clip()[1] for _ in range(2)]
+    seconds = statistics.median(runs)
+
+    if tuple(wav.shape) != (2, total_frames * HOP):
+        fail(f"main_path: output shape {tuple(wav.shape)}")
+    if not torch.isfinite(wav).all():
+        fail("main_path: non-finite waveform")
+    if wav.abs().max().item() > 1.0:
+        fail("main_path: waveform outside [-1, 1]")
+    if counts != EXPECTED_LAUNCHES:
+        fail(f"main_path: launch counts {counts} != {EXPECTED_LAUNCHES}")
+
+    # the split: one UNet call on a group of 8, one vocoder pass on the clip
+    x = torch.randn((UNET_BATCH, 2, WINDOW, WINDOW), device="cuda")
+    cond = (torch.rand((UNET_BATCH, 1, WINDOW, WINDOW), device="cuda"),
+            torch.randn((UNET_BATCH, 512), device="cuda"), None)
+    tt = torch.full((UNET_BATCH,), 500, device="cuda", dtype=torch.int32)
+    mel = torch.randn((2, 80, total_frames), device="cuda") - 6.0
+    with torch.inference_mode():
+        unet_ms = time_run_ms(lambda: unet(x, tt, cond), calls=10)
+        voc_ms = time_run_ms(lambda: voc(mel), calls=3)
+    out = {"phase": "main_path", "dtype": "bf16", "frames": total_frames,
+           "windows": pipe.n_windows, "groups": pipe.n_batches,
+           "ddim_steps": DDIM_STEPS, "output_shape": list(wav.shape),
+           "abs_max": wav.abs().max().item(),
+           "seconds_per_clip": seconds, "seconds_per_clip_runs": runs,
+           "sync": "synchronize + host clock, median of 3 clips; steps: "
+                   "CUDA events around back-to-back calls",
+           "unet_step_ms": unet_ms, "unet_steps_per_clip":
+               pipe.n_batches * DDIM_STEPS, "vocoder_pass_ms": voc_ms,
+           "launches": counts}
+    emit(out)
+    if trace_steps > 0:
+        with torch.inference_mode():
+            emit(trace("unet_step", lambda: unet(x, tt, cond), trace_steps))
+            emit(trace("vocoder_pass", lambda: voc(mel), 1))
+    return out
+
+
+def kernels_line(cases, launches) -> dict:
+    """One entry per kernel, at its heaviest shape on the main path
+    (bfloat16, as the main path runs it)."""
+    pick = {
+        "flash_sdpa": lambda c: c["shape"] == [8, 4, 6400, 32],
+        "fused_alias_free_snake": lambda c: c["shape"] == [2, 768, 3444],
+        "fused_snake_conv": lambda c: c.get("k") == 7 and c.get("dilation") == 5
+        and c["shape"] == [2, 768, 3444],
+    }
+    rows = []
+    for name, (source, replaces) in SOURCES.items():
+        case = next(c for c in cases if c["kernel"] == name
+                    and c["dtype"] == "bf16" and pick[name](c))
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": case["max_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"],
+            "shape": case["shape"], "dtype": case["dtype"],
+        })
+    return {"kernels": rows}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", type=int, default=0, metavar="STEPS",
+                    help="also trace STEPS UNet calls and one vocoder pass "
+                         "with torch.profiler")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures on the card only")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    t_start = time.time()
+    info = phase_device()
+    phase_build()
+    cases = phase_kernels()
+    phase_main_path_check()
+    main_out = phase_main_path(args.trace)
+    emit(kernels_line(cases, main_out["launches"]))
+    emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
+    print(info["nvidia_smi"], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
+                                 "count": info["count"]}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,8 @@
+from .config import (
+    AttrDict,
+    DiffusionConfig,
+    UnetConfig,
+    VocoderConfig,
+    load_hparams_from_json,
+)
+from .device import resolve_device

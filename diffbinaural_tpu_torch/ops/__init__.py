@@ -1,0 +1,28 @@
+"""The port's hand-written kernels, each beside its plain PyTorch version."""
+
+from .alias_free_act import alias_free_snake_plain, fused_alias_free_snake
+from .flash_d32 import flash_sdpa, sdpa_plain
+from .snake_conv import fused_snake_conv, snake_conv_eligible, snake_conv_plain
+
+WRAPPERS = {
+    "flash_sdpa": flash_sdpa,
+    "fused_alias_free_snake": fused_alias_free_snake,
+    "fused_snake_conv": fused_snake_conv,
+}
+
+
+def launch_counts() -> dict:
+    """Kernel launches made by each wrapper since the last reset."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+__all__ = [
+    "alias_free_snake_plain", "fused_alias_free_snake", "flash_sdpa",
+    "sdpa_plain", "fused_snake_conv", "snake_conv_eligible",
+    "snake_conv_plain", "launch_counts", "reset_launch_counts",
+]

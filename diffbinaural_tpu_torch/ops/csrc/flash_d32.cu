@@ -1,0 +1,371 @@
+// Flash attention forward for head dimension 32:
+//   o = softmax(q k^T * scale) v   on (B*H, N, 32), non-causal, no mask,
+// without materialising the N x N scores.
+//
+// Replaces the Pallas kernel _fwd_kernel (reached through flash_sdpa ->
+// _attn_core -> _fwd(save_residuals=False, exp2=True)) of
+// diffbinaural_tpu/ops/flash_d32.py.
+//
+// Bound by operations (4*N*N*32 FLOP per head against 4*N*32 elements
+// moved).  A block cannot hold a whole K/V panel as the TPU's VMEM did, so
+// both kernels below stream K/V through shared memory in tiles of 64 keys
+// with a running max and sum (exp2f; scale*log2(e) is applied in float32
+// inside the kernel — the TPU code rounds the scaled q to q's own type, these
+// kernels do not), and normalise the output once at the end.  Keys beyond N
+// are masked by index (their score is -inf); rows beyond N are computed on a
+// clamped row and not stored.
+//
+//  * bfloat16 (the type the serving path runs): flash_d32_mma_kernel, on the
+//    tensor cores with mma.sync.m16n8k16.  One warp owns 16 query rows, a
+//    block of 4 warps 64; q stays in registers as A fragments; S = q k^T is
+//    accumulated in float32 registers, scaled, soft-maxed per row across the
+//    quad that shares the row, rounded to bfloat16 and fed back as the A
+//    operand of P v (the accumulator layout of two neighbouring 8-key tiles
+//    IS an A fragment); V's B fragments come from ldmatrix.trans.  Shared
+//    rows are padded from 32 to 40 values so that both the 32-bit K reads
+//    and ldmatrix are free of bank conflicts.
+//  * float32: flash_d32_kernel, on the CUDA cores.  One block of 128 threads
+//    owns 128 query rows: each thread keeps its query row and its 32-wide
+//    accumulator in registers; every thread reads the same K/V row at a
+//    time, so shared-memory reads are broadcasts; scores are taken 16 keys
+//    at a time, so the accumulator is rescaled once per 16 keys.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+constexpr int FD = 32;        // head dimension
+constexpr int FQ = 128;       // query rows per block (one per thread)
+constexpr int FK = 64;        // keys per shared-memory tile
+constexpr int FC = 16;        // keys per online-softmax step
+
+__device__ __forceinline__ void load8(const float* p, float* dst) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+}
+__device__ __forceinline__ void store8(float* p, const float* src) {
+  *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
+  *reinterpret_cast<float4*>(p + 4) =
+      make_float4(src[4], src[5], src[6], src[7]);
+}
+// Copy one tile of FK rows x 32 values (rows >= n_rows zero-filled) into
+// shared memory.  The tile is one contiguous run in global memory.
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
+                                          int n_rows, float* dst, int tid) {
+  for (int v = tid; v < FK * FD / 8; v += FQ) {
+    const int row = v / (FD / 8);
+    float vals[8];
+    if (row < n_rows) {
+      load8(src + (size_t)v * 8, vals);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) vals[i] = 0.0f;
+    }
+    store8(dst + v * 8, vals);
+  }
+}
+
+__global__ void __launch_bounds__(FQ)
+flash_d32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int N,
+                 int n_qtiles, float qscale) {
+  __shared__ __align__(16) float Ks[FK * FD];
+  __shared__ __align__(16) float Vs[FK * FD];
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x / n_qtiles;
+  const int row = (blockIdx.x % n_qtiles) * FQ + tid;
+  const size_t base = (size_t)bh * N * FD;
+  const int rowc = min(row, N - 1);
+
+  float qr[FD], acc[FD];
+#pragma unroll
+  for (int d = 0; d < FD; d += 8) load8(q + base + (size_t)rowc * FD + d, qr + d);
+#pragma unroll
+  for (int d = 0; d < FD; ++d) {
+    qr[d] *= qscale;
+    acc[d] = 0.0f;
+  }
+  float m = -INFINITY, l = 0.0f;
+
+  for (int k0 = 0; k0 < N; k0 += FK) {
+    const int kv = min(FK, N - k0);
+    __syncthreads();  // the previous tile is no longer being read
+    load_tile(k + base + (size_t)k0 * FD, kv, Ks, tid);
+    load_tile(v + base + (size_t)k0 * FD, kv, Vs, tid);
+    __syncthreads();
+
+    for (int j0 = 0; j0 < kv; j0 += FC) {
+      float s[FC];
+#pragma unroll
+      for (int jj = 0; jj < FC; ++jj) {
+        const float4* kr = reinterpret_cast<const float4*>(Ks + (j0 + jj) * FD);
+        float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+        for (int d4 = 0; d4 < FD / 4; d4 += 2) {
+          const float4 ka = kr[d4];
+          const float4 kb = kr[d4 + 1];
+          a0 = fmaf(qr[4 * d4 + 0], ka.x, a0);
+          a0 = fmaf(qr[4 * d4 + 1], ka.y, a0);
+          a0 = fmaf(qr[4 * d4 + 2], ka.z, a0);
+          a0 = fmaf(qr[4 * d4 + 3], ka.w, a0);
+          a1 = fmaf(qr[4 * d4 + 4], kb.x, a1);
+          a1 = fmaf(qr[4 * d4 + 5], kb.y, a1);
+          a1 = fmaf(qr[4 * d4 + 6], kb.z, a1);
+          a1 = fmaf(qr[4 * d4 + 7], kb.w, a1);
+        }
+        s[jj] = (j0 + jj < kv) ? (a0 + a1) : -INFINITY;
+      }
+      float mc = s[0];
+#pragma unroll
+      for (int jj = 1; jj < FC; ++jj) mc = fmaxf(mc, s[jj]);
+      // key j0 is always valid, so m_new is finite and exp2f(-inf) == 0
+      const float m_new = fmaxf(m, mc);
+      const float corr = exp2f(m - m_new);
+      m = m_new;
+      l *= corr;
+#pragma unroll
+      for (int d = 0; d < FD; ++d) acc[d] *= corr;
+#pragma unroll
+      for (int jj = 0; jj < FC; ++jj) {
+        const float p = exp2f(s[jj] - m_new);
+        l += p;
+        const float4* vr = reinterpret_cast<const float4*>(Vs + (j0 + jj) * FD);
+#pragma unroll
+        for (int d4 = 0; d4 < FD / 4; ++d4) {
+          const float4 vv = vr[d4];
+          acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
+          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
+          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
+          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+        }
+      }
+    }
+  }
+
+  if (row < N) {
+    const float inv_l = 1.0f / l;
+#pragma unroll
+    for (int d = 0; d < FD; ++d) acc[d] *= inv_l;
+#pragma unroll
+    for (int d = 0; d < FD; d += 8) store8(o + base + (size_t)row * FD + d, acc + d);
+  }
+}
+
+// ------------------------------------------------------------ tensor cores
+
+constexpr int MQ = 64;        // query rows per block: 4 warps x 16 rows
+constexpr int MK = 64;        // keys per shared-memory tile
+constexpr int MS = FD + 8;    // padded shared row, in bfloat16 values
+constexpr int MTHREADS = 128;
+
+// d (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col).  With
+// g = lane / 4 and t = lane % 4:  a0 = A[g][2t..], a1 = A[g+8][2t..],
+// a2 = A[g][2t+8..], a3 = A[g+8][2t+8..];  b0 = B[2t..][g], b1 = B[2t+8..][g];
+// c0,c1 = C[g][2t..], c2,c3 = C[g+8][2t..].
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One 64 x 32 tile (rows >= n_rows zero-filled) into padded shared rows.
+__device__ __forceinline__ void load_tile_bf16(const __nv_bfloat16* __restrict__ src,
+                                               int n_rows, __nv_bfloat16* dst,
+                                               int tid) {
+  for (int v = tid; v < MK * FD / 8; v += MTHREADS) {
+    const int row = v >> 2;
+    const int ch = v & 3;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (row < n_rows) raw = *reinterpret_cast<const uint4*>(src + (size_t)v * 8);
+    *reinterpret_cast<uint4*>(dst + row * MS + ch * 8) = raw;
+  }
+}
+
+__global__ void __launch_bounds__(MTHREADS)
+flash_d32_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ o, int N, int n_qtiles,
+                     float qscale) {
+  __shared__ __align__(16) __nv_bfloat16 Ks[MK * MS];
+  __shared__ __align__(16) __nv_bfloat16 Vs[MK * MS];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;      // row of the quad inside the 16-row tile
+  const int t = lane & 3;       // position inside the quad
+  const int bh = blockIdx.x / n_qtiles;
+  const int row0 = (blockIdx.x % n_qtiles) * MQ + warp * 16;
+  const size_t base = (size_t)bh * N * FD;
+  const int r_lo = row0 + g;
+  const int r_hi = row0 + g + 8;
+
+  // q as A fragments, two k-steps of 16 over the head dimension
+  uint32_t qa[2][4];
+  {
+    const __nv_bfloat16* q_lo = q + base + (size_t)min(r_lo, N - 1) * FD;
+    const __nv_bfloat16* q_hi = q + base + (size_t)min(r_hi, N - 1) * FD;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      qa[ks][0] = *reinterpret_cast<const uint32_t*>(q_lo + 16 * ks + 2 * t);
+      qa[ks][1] = *reinterpret_cast<const uint32_t*>(q_hi + 16 * ks + 2 * t);
+      qa[ks][2] = *reinterpret_cast<const uint32_t*>(q_lo + 16 * ks + 8 + 2 * t);
+      qa[ks][3] = *reinterpret_cast<const uint32_t*>(q_hi + 16 * ks + 8 + 2 * t);
+    }
+  }
+
+  float acc[4][4];              // o: 4 tiles of 8 head columns
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.0f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.0f, l_hi = 0.0f;
+
+  // ldmatrix.x4.trans source row of this lane inside a 16-key x 16-column
+  // block of V: matrices (keys 0-7, cols 0-7), (keys 8-15, cols 0-7),
+  // (keys 0-7, cols 8-15), (keys 8-15, cols 8-15)
+  const int lm_row = ((lane >> 3) & 1) * 8 + (lane & 7);
+  const int lm_col = (lane >> 4) * 8;
+  const uint32_t vs_addr =
+      (uint32_t)__cvta_generic_to_shared(Vs + lm_row * MS + lm_col);
+
+  for (int k0 = 0; k0 < N; k0 += MK) {
+    const int kv = min(MK, N - k0);
+    __syncthreads();  // the previous tile is no longer being read
+    load_tile_bf16(k + base + (size_t)k0 * FD, kv, Ks, tid);
+    load_tile_bf16(v + base + (size_t)k0 * FD, kv, Vs, tid);
+    __syncthreads();
+
+    // s = q k^T: 8 tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+      const __nv_bfloat16* kr = Ks + (nt * 8 + g) * MS + 2 * t;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + 16 * ks);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + 16 * ks + 8);
+        mma_16816(s[nt], qa[ks], b0, b1);
+      }
+    }
+
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] *= qscale;
+      if (kv < MK) {  // ragged last tile: mask keys beyond N by index
+        const int key = nt * 8 + 2 * t;
+        if (key >= kv) s[nt][0] = s[nt][2] = -INFINITY;
+        if (key + 1 >= kv) s[nt][1] = s[nt][3] = -INFINITY;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+    }
+    // a row's 64 scores live in the 4 lanes of its quad
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+    // key k0 is always valid, so the new maxima are finite
+    const float mn_lo = fmaxf(m_lo, mx_lo);
+    const float mn_hi = fmaxf(m_hi, mx_hi);
+    const float c_lo = exp2f(m_lo - mn_lo);
+    const float c_hi = exp2f(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    l_lo *= c_lo;
+    l_hi *= c_hi;
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt) {
+      acc[dt][0] *= c_lo;
+      acc[dt][1] *= c_lo;
+      acc[dt][2] *= c_hi;
+      acc[dt][3] *= c_hi;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s[nt][0] = exp2f(s[nt][0] - mn_lo);
+      s[nt][1] = exp2f(s[nt][1] - mn_lo);
+      s[nt][2] = exp2f(s[nt][2] - mn_hi);
+      s[nt][3] = exp2f(s[nt][3] - mn_hi);
+      l_lo += s[nt][0] + s[nt][1];   // this lane's columns; the quad's
+      l_hi += s[nt][2] + s[nt][3];   // partial sums are added at the end
+    }
+
+    // o += p v: 4 steps of 16 keys, 4 tiles of 8 head columns
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < 2; ++dp) {
+        uint32_t b0, b1, b2, b3;
+        const uint32_t addr =
+            vs_addr + (uint32_t)((kk * 16 * MS + dp * 16) * sizeof(__nv_bfloat16));
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+            : "r"(addr));
+        mma_16816(acc[2 * dp], pa, b0, b1);
+        mma_16816(acc[2 * dp + 1], pa, b2, b3);
+      }
+    }
+  }
+
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  const float inv_lo = 1.0f / l_lo;
+  const float inv_hi = 1.0f / l_hi;
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) {
+    if (r_lo < N) {
+      *reinterpret_cast<uint32_t*>(o + base + (size_t)r_lo * FD + dt * 8 + 2 * t) =
+          pack_bf16(acc[dt][0] * inv_lo, acc[dt][1] * inv_lo);
+    }
+    if (r_hi < N) {
+      *reinterpret_cast<uint32_t*>(o + base + (size_t)r_hi * FD + dt * 8 + 2 * t) =
+          pack_bf16(acc[dt][2] * inv_hi, acc[dt][3] * inv_hi);
+    }
+  }
+}
+
+extern "C" int flash_d32_forward(const void* q, const void* k, const void* v,
+                                 void* o, int BH, int N, float scale,
+                                 int is_bf16, void* stream) {
+  if (BH <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  const int rows = is_bf16 ? MQ : FQ;
+  const int n_qtiles = (N + rows - 1) / rows;
+  const long long blocks = (long long)BH * n_qtiles;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const float qscale = scale * 1.4426950408889634f;  // fold log2(e): exp2f below
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    flash_d32_mma_kernel<<<(unsigned)blocks, MTHREADS, 0, s>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, N, n_qtiles, qscale);
+  } else {
+    flash_d32_kernel<<<(unsigned)blocks, FQ, 0, s>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, N,
+        n_qtiles, qscale);
+  }
+  return (int)cudaGetLastError();
+}
