@@ -2,19 +2,28 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``diffbinaural_tpu_torch/ops/csrc`` with nvcc,
-holds each against its plain PyTorch version on the card at the shapes the
-inference path gives it, checks the full-width path through the kernels
-against the same path through the plain versions (float32, two DDIM steps),
-then runs the 10 s clip at full width in bfloat16 (861 frames, 21 windows in
-3 groups of 8, DDIM-25, BigVGAN vocoder; random weights from a seed) and
-checks the launch counts.  Every phase prints one JSON line; any failure
-exits non-zero.  There is no CPU fallback: without a CUDA device the script
-fails before printing a result.
+Builds the CUDA kernels from ``diffbinaural_tpu_torch/ops/csrc`` with nvcc
+and holds each against its plain PyTorch version on the card at the shapes
+the two paths give it.  Then it drives both paths at full width, random
+weights from a seed:
+
+  * serving — the full-width path through the kernels against the same path
+    through the plain versions (float32, two DDIM steps), then the 10 s clip
+    in bfloat16 (861 frames, 21 windows in 3 groups of 8, DDIM-25, BigVGAN
+    vocoder);
+  * stage-1 training — one step's loss and every parameter's gradient
+    through the kernels against the same through the plain versions
+    (float32, batch 2), then optimiser steps in bfloat16 at batch 16 on a
+    batch made by the port's mel frontend from a synthetic stereo signal.
+
+Each path's launch counts are set to 0 before it and checked after it.
+Every phase prints one JSON line; any failure exits non-zero.  There is no
+CPU fallback: without a CUDA device the script fails before printing a
+result.
 
     python3 chip_smoke.py --trace 10
 
-also traces 10 UNet calls and one vocoder pass of that clip with
+also traces 10 UNet calls, one vocoder pass and 3 train steps with
 ``torch.profiler`` and prints, for each, the wall time, the summed device
 time, the device's busy share and the ten kernels with the most device time.
 
@@ -43,11 +52,27 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 
 CLIP_SECONDS, SR, HOP, WINDOW, UNET_BATCH, DDIM_STEPS = 10.0, 22050, 256, 80, 8, 25
 BF16_UNET_TOL = 5e-2  # of the output's scale, see phase_main_path_check
-EXPECTED_LAUNCHES = {"flash_sdpa": 300, "fused_alias_free_snake": 97,
-                     "fused_snake_conv": 12}
+TRAIN_BATCH, TRAIN_STEPS = 16, 5
+ATTN_PER_STEP = 4  # Attention layers with n >= 1024: two at 6400, two at 1600
+
+
+def launches(**nonzero) -> dict:
+    """Launch counts of every wrapper, 0 where not named."""
+    from diffbinaural_tpu_torch import ops
+
+    return {name: nonzero.get(name, 0) for name in ops.WRAPPERS}
+
+
+# which path gives a kernel its launch count in the `kernels` line
+SERVING_KERNELS = ("flash_sdpa", "fused_alias_free_snake", "fused_snake_conv")
+TRAINING_KERNELS = ("flash_sdpa_with_lse", "flash_sdpa_backward")
 SOURCES = {
     "flash_sdpa": ("diffbinaural_tpu_torch/ops/csrc/flash_d32.cu",
                    "diffbinaural_tpu/ops/flash_d32.py:175"),
+    "flash_sdpa_with_lse": ("diffbinaural_tpu_torch/ops/csrc/flash_d32.cu",
+                            "diffbinaural_tpu/ops/flash_d32.py:184"),
+    "flash_sdpa_backward": ("diffbinaural_tpu_torch/ops/csrc/flash_d32_bwd.cu",
+                            "diffbinaural_tpu/ops/flash_d32.py:245"),
     "fused_alias_free_snake": (
         "diffbinaural_tpu_torch/ops/csrc/alias_free_act.cu",
         "diffbinaural_tpu/ops/alias_free_act.py:607"),
@@ -222,6 +247,126 @@ def _bound(case, flops, nbytes, dtype_name):
     case["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _in_batch_chunks(fn, chunk, *tensors):
+    """``fn`` on slices of ``chunk`` samples, outputs joined along the batch
+    (the plain versions hold N x N tensors: at batch 16 and N = 6400 they do
+    not fit at once)."""
+    parts = [fn(*(a[i:i + chunk] for a in tensors))
+             for i in range(0, tensors[0].shape[0], chunk)]
+    return tuple(torch.cat(column) for column in zip(*parts))
+
+
+def _worst(name, case, pairs, tol, relative, rms_tol):
+    """``_compare`` over (label, got, want) pairs; the worst max error, the
+    worst max error as a share of max|want|, and the worst relative rms."""
+    worst, worst_share, worst_rms = 0.0, 0.0, 0.0
+    for label, got, want in pairs:
+        err = _compare(name, (*case, label), got, want, tol, relative, rms_tol)
+        worst = max(worst, err)
+        worst_share = max(worst_share, err / want.float().abs().max().item())
+        worst_rms = max(worst_rms, _rel_rms(got, want))
+    return worst, worst_share, worst_rms
+
+
+def check_k1_training(gen, results):
+    """The training forward (``flash_sdpa_with_lse``: o and lse) and the
+    backward (``flash_sdpa_backward``: dq, dk, dv) against their plain
+    versions, at the training path's two shapes (batch 16; the plain
+    versions run in batch chunks of 2 at N = 6400) and on a ragged N = 1000.
+    float32: o and the gradients 2e-4 absolute, lse 2e-5 (sums of N terms in
+    another order, exp2f against exp).  bfloat16: o and the gradients 2e-2
+    of max|want| and 1e-2 of the rms, as the residual-free forward (both
+    sides round p — the backward also ds — and the results to bfloat16; the
+    plain version also rounds the scaled q); lse 2e-2 absolute (the kernel
+    scales in float32, the plain version rounds q * scale to bfloat16
+    first).  The path's shapes are also timed: kernel, plain version, and
+    the library — one ``F.scaled_dot_product_attention`` forward, and its
+    autograd backward alone."""
+    from diffbinaural_tpu_torch.ops import (flash_sdpa, flash_sdpa_backward,
+                                            flash_sdpa_with_lse,
+                                            sdpa_backward_plain,
+                                            sdpa_plain_with_lse)
+
+    scale = 32 ** -0.5
+
+    def plain_fwd(*a):
+        return sdpa_plain_with_lse(*a, scale)
+
+    def plain_bwd(*a):
+        return sdpa_backward_plain(*a, scale)
+
+    for shape in ((TRAIN_BATCH, 4, 6400, 32), (TRAIN_BATCH, 4, 1600, 32),
+                  (2, 4, 1000, 32)):
+        b, h, n, d = shape
+        chunk = 2 if n > 1600 else b
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            tol, rel, rms_tol = (2e-2, True, 1e-2) if bf16 else (2e-4, False, None)
+            lse_tol = 2e-2 if bf16 else 2e-5
+            name = dt_name(dtype)
+            q, k, v, do = (rand(gen, shape, dtype) for _ in range(4))
+            o, lse = flash_sdpa_with_lse(q, k, v, scale)
+            o_p, lse_p = _in_batch_chunks(plain_fwd, chunk, q, k, v)
+            fwd_err, fwd_share, fwd_rms = _worst(
+                "flash_sdpa_with_lse", (shape, name), [("o", o, o_p)], tol, rel,
+                rms_tol)
+            lse_err = _compare("flash_sdpa_with_lse", (shape, name, "lse"),
+                               lse, lse_p, lse_tol, False)
+            # the two forwards are one kernel: the outputs are the same bits
+            if not torch.equal(o, flash_sdpa(q, k, v, scale)):
+                fail(f"flash_sdpa_with_lse {shape} {name}: output differs "
+                     f"from the residual-free forward's")
+            grads = flash_sdpa_backward(q, k, v, o, lse, do, scale)
+            grads_p = _in_batch_chunks(plain_bwd, chunk, q, k, v, o_p, lse_p, do)
+            bwd_err, bwd_share, bwd_rms = _worst(
+                "flash_sdpa_backward", (shape, name),
+                list(zip(("dq", "dk", "dv"), grads, grads_p)), tol, rel, rms_tol)
+            del o_p, lse_p, grads, grads_p
+            common = {"shape": list(shape), "dtype": name, "tol": tol,
+                      "tol_relative_to_output_scale": rel, "rms_tol": rms_tol}
+            fwd = {"kernel": "flash_sdpa_with_lse", **common,
+                   "max_err": fwd_err, "max_err_of_output_scale": fwd_share,
+                   "rms_err_of_output_rms": fwd_rms, "lse_max_err": lse_err,
+                   "lse_tol": lse_tol}
+            bwd = {"kernel": "flash_sdpa_backward", **common,
+                   "max_err": bwd_err, "max_err_of_output_scale": bwd_share,
+                   "rms_err_of_output_rms": bwd_rms}
+            if n >= 1600:
+                iters = 5 if n > 1600 else 10
+                fwd["ms"] = time_ms(
+                    lambda: flash_sdpa_with_lse(q, k, v, scale), iters=iters)
+                bwd["ms"] = time_ms(
+                    lambda: flash_sdpa_backward(q, k, v, o, lse, do, scale),
+                    iters=iters)
+                fwd["plain_ms"] = time_ms(
+                    lambda: _in_batch_chunks(plain_fwd, chunk, q, k, v),
+                    warmup=1, iters=iters)
+                bwd["plain_ms"] = time_ms(
+                    lambda: _in_batch_chunks(plain_bwd, chunk, q, k, v, o, lse, do),
+                    warmup=1, iters=iters)
+                fwd["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                    iters=iters)
+                leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+                out = F.scaled_dot_product_attention(*leaves, scale=scale)
+                bwd["library_ms"] = time_ms(
+                    lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True),
+                    iters=iters)
+                del out, leaves
+                rows, es = float(b * h * n), q.element_size()
+                # forward: q, k, v read, o and one float32 lse per row written
+                _bound(fwd, 4.0 * rows * n * d, rows * (4 * d * es + 4), name)
+                # backward: five products at the least; q, k, v, o, do and
+                # lse read, dq, dk, dv written.  The two kernels recompute s
+                # and dp, so they do 14 N^2 D where 10 are needed.
+                _bound(bwd, 10.0 * rows * n * d, rows * (8 * d * es + 4), name)
+                bwd["flop_done_over_flop_needed"] = 1.4
+            results += [fwd, bwd]
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+
+
 K2_STAGES = [(768, 3444), (384, 13776), (192, 27552), (96, 55104),
              (48, 110208), (24, 220416)]
 # per sample: two up-FIR phases (6 mul + 5 add + gain), two snakes (3 mul,
@@ -308,6 +453,7 @@ def phase_kernels() -> list:
     check_k3(gen, results)
     check_k1(gen, results)
     torch.cuda.empty_cache()
+    check_k1_training(gen, results)
     emit({"phase": "kernels", "cases": results})
     return results
 
@@ -395,8 +541,8 @@ def phase_main_path_check() -> None:
     torch.cuda.synchronize()
     if ops.launch_counts() != counts:
         fail("plain_versions() launched a kernel")
-    if counts != {"flash_sdpa": 12, "fused_alias_free_snake": 97,
-                  "fused_snake_conv": 12}:
+    if counts != launches(flash_sdpa=12, fused_alias_free_snake=97,
+                          fused_snake_conv=12):
         fail(f"main_path_check launch counts {counts}")
     err_raw = _compare("main_path_check", "unet", raw_k, raw_p, 2e-4, True)
     err_pred = _compare("main_path_check", "stage1", pred_k, pred_p, 2e-3, False)
@@ -451,11 +597,13 @@ def trace(part: str, fn, calls: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: the host-side operator rows carry the same
-    # device time once more
+    # device-side kernels only: the host-side operator rows, and the
+    # device-side copy of a host annotation (the optimiser's step), carry the
+    # same device time once more
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(r[1] for r in rows)
     if device_ms <= 0:
         fail("trace: the profiler reported no device time")
@@ -513,8 +661,10 @@ def phase_main_path(trace_steps: int = 0) -> dict:
         fail("main_path: non-finite waveform")
     if wav.abs().max().item() > 1.0:
         fail("main_path: waveform outside [-1, 1]")
-    if counts != EXPECTED_LAUNCHES:
-        fail(f"main_path: launch counts {counts} != {EXPECTED_LAUNCHES}")
+    expected = launches(flash_sdpa=300, fused_alias_free_snake=97,
+                        fused_snake_conv=12)
+    if counts != expected:
+        fail(f"main_path: launch counts {counts} != {expected}")
 
     # the split: one UNet call on a group of 8, one vocoder pass on the clip
     x = torch.randn((UNET_BATCH, 2, WINDOW, WINDOW), device="cuda")
@@ -543,11 +693,244 @@ def phase_main_path(trace_steps: int = 0) -> dict:
     return out
 
 
-def kernels_line(cases, launches) -> dict:
-    """One entry per kernel, at its heaviest shape on the main path
-    (bfloat16, as the main path runs it)."""
+# ----------------------------------------------------------- training path
+
+
+def phase_grad_refusal() -> None:
+    """The forward-only wrappers refuse a CUDA input that requires grad (no
+    silent cut of the autograd graph); the attention's output carries a
+    grad_fn and gradients reach q, k and v."""
+    from diffbinaural_tpu_torch import ops
+
+    c = 768
+    x = torch.randn((1, c, 64), device="cuda")
+    alpha = torch.zeros(c, device="cuda")
+    w = torch.randn((c, c, 3), device="cuda") * 0.02
+    calls = {
+        "fused_alias_free_snake: x": lambda: ops.fused_alias_free_snake(
+            x.clone().requires_grad_(), alpha, alpha),
+        "fused_alias_free_snake: alpha": lambda: ops.fused_alias_free_snake(
+            x, alpha.clone().requires_grad_(), alpha),
+        "fused_snake_conv: x": lambda: ops.fused_snake_conv(
+            x.clone().requires_grad_(), alpha, alpha, w, alpha),
+        "fused_snake_conv: weight": lambda: ops.fused_snake_conv(
+            x, alpha, alpha, w.clone().requires_grad_(), alpha),
+    }
+    refused = []
+    for label, call in calls.items():
+        try:
+            call()
+        except RuntimeError as exc:
+            if "ROADMAP" not in str(exc):
+                raise
+            refused.append(label)
+        else:
+            fail(f"grad_refusal: {label} requires grad and was not refused")
+        with torch.no_grad():  # the same call without a gradient runs
+            call()
+    q, k, v = (torch.randn((1, 4, 1600, 32), device="cuda", requires_grad=True)
+               for _ in range(3))
+    out = ops.flash_sdpa(q, k, v, 32 ** -0.5)
+    if out.grad_fn is None:
+        fail("grad_refusal: flash_sdpa's output has no grad_fn")
+    out.sum().backward()
+    torch.cuda.synchronize()
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if a.grad is None or not torch.isfinite(a.grad).all():
+            fail(f"grad_refusal: no finite gradient reached {name}")
+    with torch.no_grad():
+        if ops.flash_sdpa(q, k, v, 32 ** -0.5).grad_fn is not None:
+            fail("grad_refusal: flash_sdpa under no_grad has a grad_fn")
+    emit({"phase": "grad_refusal", "refused": refused,
+          "flash_sdpa_grad_fn": type(out.grad_fn).__name__})
+
+
+def synthetic_batch(batch: int, seed: int) -> dict:
+    """A stage-1 batch from a seeded synthetic stereo signal: drifting tones
+    and noise, the right channel delayed and attenuated against the left;
+    ln-mels of the two channels and of their mean by the port's own mel
+    frontend on the card, cut into ``batch`` windows of 80 frames; visual
+    features from the seed."""
+    from diffbinaural_tpu_torch.signal import mel_spectrogram, num_frames
+
+    n = batch * WINDOW * HOP
+    rng = np.random.default_rng(seed)
+    time_s = np.arange(n) / SR
+    left = np.zeros(n)
+    for f0 in (220.0, 523.0, 1370.0, 4100.0):
+        drift = 1.0 + 0.2 * np.sin(2 * np.pi * rng.uniform(0.05, 0.3) * time_s)
+        left += rng.uniform(0.05, 0.25) * np.sin(2 * np.pi * f0 * drift * time_s)
+    left += 0.02 * rng.standard_normal(n)
+    right = 0.7 * np.roll(left, 14) + 0.02 * rng.standard_normal(n)
+    stereo = torch.from_numpy(np.stack([left, right]).astype(np.float32)).cuda()
+    frames = num_frames(n)
+    if frames != batch * WINDOW:
+        fail(f"train_path: {frames} mel frames from {n} samples")
+    binaural = mel_spectrogram(stereo)                            # (2, 80, T)
+    mono = mel_spectrogram(stereo.mean(dim=0, keepdim=True))      # (1, 80, T)
+
+    def windows(mel):  # (C, 80, batch * 80) -> (batch, C, 80, 80)
+        c = mel.shape[0]
+        return mel.reshape(c, 80, batch, WINDOW).permute(2, 0, 1, 3).contiguous()
+
+    feat = torch.from_numpy(
+        rng.standard_normal((batch, 512)).astype(np.float32)).cuda()
+    return {"mono_mel": windows(mono), "binaural_mel": windows(binaural),
+            "feat": feat}
+
+
+# one gradient against its plain-path twin: this share of the gradient's own
+# scale, plus this share of the largest gradient's scale (some gradients are
+# zero up to rounding: cross-attention's q/k and norm3)
+TRAIN_CHECK_TOL, TRAIN_CHECK_FLOOR = 2e-3, 1e-6
+
+
+def phase_train_check() -> None:
+    """One stage-1 train step at full width in float32 (TF32 off), batch 2,
+    one injected (t, noise, drop): loss, pre-clip gradient norm and every
+    parameter's gradient through the kernels against the same through the
+    plain versions.  The step runs with ``lr_scale`` 0 and no norm clip, so
+    the parameters stay and the gradients are left as autograd made them."""
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.train import make_stage1_train_step
+
+    b = 2
+    unet = build_unet(torch.float32, seed=0)
+    init_fn, step_fn = make_stage1_train_step(unet, clip_norm=float("inf"))
+    state = init_fn()
+    state.lr_scale = 0.0
+    batch = synthetic_batch(b, seed=5)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    draws = dict(
+        t=torch.tensor([37, 811], device="cuda"),
+        noise=torch.randn((b, 2, WINDOW, WINDOW), generator=gen, device="cuda"),
+        drop=torch.tensor([False, True], device="cuda"))
+
+    def run():
+        _, metrics = step_fn(state, batch, **draws)
+        torch.cuda.synchronize()
+        grads = {k: p.grad.clone() for k, p in unet.named_parameters()}
+        return metrics["loss"].item(), metrics["grad_norm"].item(), grads
+
+    ops.reset_launch_counts()
+    loss_k, norm_k, grads_k = run()
+    counts = ops.launch_counts()
+    with plain_versions():
+        loss_p, norm_p, grads_p = run()
+    if ops.launch_counts() != counts:
+        fail("train_check: plain_versions() launched a kernel")
+    expected = launches(flash_sdpa_with_lse=ATTN_PER_STEP,
+                        flash_sdpa_backward=ATTN_PER_STEP)
+    if counts != expected:
+        fail(f"train_check: launch counts {counts} != {expected}")
+    if not (np.isfinite(loss_k) and np.isfinite(norm_k)):
+        fail(f"train_check: loss {loss_k}, grad_norm {norm_k}")
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
+        fail(f"train_check: loss {loss_k} vs {loss_p} through the plain versions")
+    if abs(norm_k - norm_p) > 1e-4 * norm_p:
+        fail(f"train_check: grad_norm {norm_k} vs {norm_p}")
+    top = max(g.abs().max().item() for g in grads_p.values())
+    worst, worst_name, n_zero = 0.0, "", 0
+    for name, want in grads_p.items():
+        got = grads_k[name]
+        if not torch.isfinite(got).all():
+            fail(f"train_check: non-finite gradient of {name}")
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if err > TRAIN_CHECK_TOL * scale + TRAIN_CHECK_FLOOR * top:
+            fail(f"train_check: gradient of {name}: max error {err:.3e} at "
+                 f"scale {scale:.3e} (largest gradient {top:.3e})")
+        n_zero += scale <= 1e-5 * top
+        if scale > 1e-5 * top and err / scale > worst:
+            worst, worst_name = err / scale, name
+    emit({"phase": "train_check", "dtype": "fp32", "tf32": False, "batch": b,
+          "loss": loss_k, "loss_plain": loss_p, "loss_rel_diff":
+              abs(loss_k - loss_p) / abs(loss_p), "loss_tol": 1e-5,
+          "grad_norm": norm_k, "grad_norm_plain": norm_p,
+          "parameters": len(grads_p),
+          "worst_grad_err_of_own_scale": worst, "worst_grad": worst_name,
+          "grad_tol_of_own_scale": TRAIN_CHECK_TOL,
+          "grad_floor_of_largest_scale": TRAIN_CHECK_FLOOR,
+          "largest_grad_scale": top,
+          "grads_below_1e-5_of_largest": int(n_zero), "launches": counts})
+    del unet, state, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def phase_train_path(trace_steps: int = 0) -> dict:
+    """Optimiser steps of the stage-1 trainer at full width in bfloat16,
+    batch 16, through the entry point a user calls
+    (``make_stage1_train_step``): one warm-up step with draws from the
+    generator, then ``TRAIN_STEPS`` timed steps with one fixed (t, noise,
+    drop), so that the losses are those of one objective and must fall."""
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.train import (TrainingStabilizer,
+                                              make_stage1_train_step)
+
+    b = TRAIN_BATCH
+    unet = build_unet(torch.bfloat16, seed=0)
+    init_fn, step_fn = make_stage1_train_step(unet)
+    state = init_fn()
+    batch = synthetic_batch(b, seed=7)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    draws = dict(
+        t=torch.randint(0, 1000, (b,), generator=gen, device="cuda"),
+        noise=torch.randn((b, 2, WINDOW, WINDOW), generator=gen, device="cuda"),
+        drop=torch.rand((b,), generator=gen, device="cuda") < 0.1)
+    stabilizer = TrainingStabilizer()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state, _ = step_fn(state, batch, generator=gen)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        losses, norms, seconds = [], [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch, **draws)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+            stabilizer.training_step(losses[-1], norms[-1])
+    except torch.cuda.OutOfMemoryError as exc:
+        fail(f"train_path: batch {b} does not fit the card's memory: {exc}")
+    counts = ops.launch_counts()
+    memory = stabilizer.memory_report()
+
+    if state.step != TRAIN_STEPS + 1:
+        fail(f"train_path: state.step {state.step}")
+    if not all(np.isfinite(x) for x in losses + norms):
+        fail(f"train_path: losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train_path: the loss did not fall: {losses}")
+    expected = launches(flash_sdpa_with_lse=ATTN_PER_STEP * TRAIN_STEPS,
+                        flash_sdpa_backward=ATTN_PER_STEP * TRAIN_STEPS)
+    if counts != expected:
+        fail(f"train_path: launch counts {counts} != {expected}")
+    if not all(torch.isfinite(p).all() for p in unet.parameters()):
+        fail("train_path: a parameter is not finite after the steps")
+    out = {"phase": "train_path", "dtype": "bf16", "batch": b,
+           "steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
+           "seconds_per_step": statistics.median(seconds),
+           "seconds_per_step_runs": seconds,
+           "sync": "synchronize + host clock around each step, median",
+           "max_memory_allocated_bytes": memory["peak_allocated_bytes"],
+           "launches": counts,
+           "launches_per_step": {k: v // TRAIN_STEPS for k, v in counts.items()}}
+    emit(out)
+    if trace_steps > 0:
+        emit(trace("train_step", lambda: step_fn(state, batch, **draws),
+                   min(trace_steps, 3)))
+    return out
+
+
+def kernels_line(cases, counts) -> dict:
+    """One entry per kernel, at its heaviest shape on its path (bfloat16,
+    as both paths run it)."""
     pick = {
         "flash_sdpa": lambda c: c["shape"] == [8, 4, 6400, 32],
+        "flash_sdpa_with_lse": lambda c: c["shape"] == [TRAIN_BATCH, 4, 6400, 32],
+        "flash_sdpa_backward": lambda c: c["shape"] == [TRAIN_BATCH, 4, 6400, 32],
         "fused_alias_free_snake": lambda c: c["shape"] == [2, 768, 3444],
         "fused_snake_conv": lambda c: c.get("k") == 7 and c.get("dilation") == 5
         and c["shape"] == [2, 768, 3444],
@@ -558,7 +941,7 @@ def kernels_line(cases, launches) -> dict:
                     and c["dtype"] == "bf16" and pick[name](c))
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": counts[name],
             "max_abs_err": case["max_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
@@ -570,8 +953,8 @@ def kernels_line(cases, launches) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", type=int, default=0, metavar="STEPS",
-                    help="also trace STEPS UNet calls and one vocoder pass "
-                         "with torch.profiler")
+                    help="also trace STEPS UNet calls, one vocoder pass and "
+                         "up to 3 train steps with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures on the card only")
@@ -584,7 +967,16 @@ def main() -> None:
     cases = phase_kernels()
     phase_main_path_check()
     main_out = phase_main_path(args.trace)
-    emit(kernels_line(cases, main_out["launches"]))
+    phase_grad_refusal()
+    phase_train_check()
+    train_out = phase_train_path(args.trace)
+    # each kernel's count comes from the run of its own path
+    counts = {k: main_out["launches"][k] for k in SERVING_KERNELS}
+    counts.update({k: train_out["launches"][k] for k in TRAINING_KERNELS})
+    never = [k for k, v in counts.items() if v < 1]
+    if never:
+        fail(f"kernels never launched on their path: {never}")
+    emit(kernels_line(cases, counts))
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

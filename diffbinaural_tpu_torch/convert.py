@@ -12,6 +12,10 @@ names, so the conversion is one walk of the tree plus the layout changes:
   * ``WNConv1d`` v (k, in, out)                -> v (out, in, k)
   * ``WNConvTranspose1d`` v (k, out, in)       -> v (in, out, k)
   * everything else (g, b, alpha, beta, LayerNorm g) unchanged.
+
+``unet_tree_to_flax`` goes the other way for the UNet — parameters, or
+gradients keyed like them, back to a flax-shaped tree of numpy arrays — so
+that a train step of the port can be compared with the JAX one leaf by leaf.
 """
 
 from __future__ import annotations
@@ -73,3 +77,33 @@ def bigvgan_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     has a ``generator`` level, or of any sub-module) -> state_dict of the
     port's counterpart."""
     return _state_dict(tree)
+
+
+def _leaf_to_flax(name: str, value: np.ndarray):
+    """Inverse of :func:`_leaf` for the UNet's leaves."""
+    if name == "weight":
+        if value.ndim == 2:
+            return "kernel", value.T
+        if value.ndim == 4:
+            return "kernel", value.transpose(2, 3, 1, 0)
+        if value.ndim == 1:
+            return "scale", value
+        raise ValueError(f"unexpected weight rank {value.ndim}")
+    return name, value
+
+
+def unet_tree_to_flax(named: Mapping[str, torch.Tensor]) -> Dict:
+    """``state_dict``-shaped tensors of the port's UNet (its parameters, or
+    their gradients under the same names) -> the flax-shaped nested dict of
+    numpy arrays, with the layout changes of :func:`unet_params_from_flax`
+    undone.  The result has no top-level ``params`` level."""
+    tree: Dict = {}
+    for key, tensor in named.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        name, value = _leaf_to_flax(
+            leaf, tensor.detach().cpu().float().numpy())
+        node[name] = np.ascontiguousarray(value)
+    return tree

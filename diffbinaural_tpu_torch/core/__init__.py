@@ -1,5 +1,6 @@
 from .config import (
     AttrDict,
+    AudioConfig,
     DiffusionConfig,
     UnetConfig,
     VocoderConfig,

@@ -1,5 +1,5 @@
 """Config ingestion: JSON + AttrDict, and the typed dataclasses of the
-inference path.  Own copy of the framework-free definitions in
+inference and stage-1 training paths.  Own copy of the framework-free definitions in
 ``diffbinaural_tpu/core/config.py`` — the port never imports that package.
 """
 
@@ -20,6 +20,23 @@ class AttrDict(dict):
 def load_hparams_from_json(path) -> AttrDict:
     with open(path) as f:
         return AttrDict(json.load(f))
+
+
+@dataclass(frozen=True)
+class AudioConfig:
+    """Shared audio-frontend parameters (22.05 kHz, 1024-point STFT, hop
+    256, 80 mel bands) and the ln-mel range of the stage-1 wrappers."""
+
+    sampling_rate: int = 22050
+    n_fft: int = 1024
+    hop_size: int = 256
+    win_size: int = 1024
+    num_mels: int = 80
+    fmin: float = 0.0
+    fmax: float | None = None  # None -> sr/2
+
+    mel_min: float = -12.0
+    mel_max: float = 2.5
 
 
 @dataclass(frozen=True)

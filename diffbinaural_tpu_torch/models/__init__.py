@@ -53,7 +53,9 @@ def init_parameters(module: nn.Module, seed: int = 0) -> nn.Module:
 def build_unet(config: UnetConfig = UnetConfig(), dtype=torch.float32,
                seed: int = 0, device=None) -> AudioVisualModel:
     """The stage-1 denoiser at ``config``'s widths, ``dtype`` the compute
-    type (parameters stay float32)."""
+    type (parameters stay float32).  Returned in ``eval()`` mode with
+    parameters that require grad: the stage-1 train step trains it as it
+    is, with dropout off, as the JAX train step does."""
     device = resolve_device(device)
     model = AudioVisualModel(
         dim=config.dim, input_nc=config.in_channels,

@@ -53,9 +53,10 @@ def _sdpa(q, k, v, scale: float):
     """Scaled dot-product attention over (B, H, N, D) tokens.
 
     Sequences of ``FLASH_MIN_TOKENS`` or more go to ``ops.flash_sdpa``
-    (the hand-written kernel on the card; the N x N scores are never
-    materialised): bfloat16 passes straight through, anything else runs in
-    float32.  Shorter ones are the dense product with a float32 softmax."""
+    (the hand-written kernels on the card, forward and backward; the N x N
+    scores are never materialised): bfloat16 passes straight through,
+    anything else runs in float32.  Shorter ones are the dense product with
+    a float32 softmax, differentiated by autograd."""
     if q.shape[2] >= FLASH_MIN_TOKENS:
         dt = torch.bfloat16 if v.dtype == torch.bfloat16 else torch.float32
         out = flash_sdpa(

@@ -1,11 +1,20 @@
 """The port's hand-written kernels, each beside its plain PyTorch version."""
 
 from .alias_free_act import alias_free_snake_plain, fused_alias_free_snake
-from .flash_d32 import flash_sdpa, sdpa_plain
+from .flash_d32 import (
+    flash_sdpa,
+    flash_sdpa_backward,
+    flash_sdpa_with_lse,
+    sdpa_backward_plain,
+    sdpa_plain,
+    sdpa_plain_with_lse,
+)
 from .snake_conv import fused_snake_conv, snake_conv_eligible, snake_conv_plain
 
 WRAPPERS = {
     "flash_sdpa": flash_sdpa,
+    "flash_sdpa_with_lse": flash_sdpa_with_lse,
+    "flash_sdpa_backward": flash_sdpa_backward,
     "fused_alias_free_snake": fused_alias_free_snake,
     "fused_snake_conv": fused_snake_conv,
 }
@@ -23,6 +32,7 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "alias_free_snake_plain", "fused_alias_free_snake", "flash_sdpa",
-    "sdpa_plain", "fused_snake_conv", "snake_conv_eligible",
+    "flash_sdpa_backward", "flash_sdpa_with_lse", "sdpa_backward_plain",
+    "sdpa_plain", "sdpa_plain_with_lse", "fused_snake_conv", "snake_conv_eligible",
     "snake_conv_plain", "launch_counts", "reset_launch_counts",
 ]

@@ -8,7 +8,7 @@ holds no library for the current sources.  :func:`build_all` starts one
 ``nvcc`` per source at once, for callers that want every kernel up front.
 
 The build directory is ``diffbinaural_tpu_torch/build/`` (git-ignored); a
-library's file name carries a hash of its source, the shared header and the
+library's file name carries a hash of its source, the shared headers and the
 generated tap table, so an edited source is rebuilt and a stale library is
 never loaded.
 """
@@ -32,8 +32,19 @@ _F = ctypes.c_float
 KERNELS = {
     "flash_d32": (
         "flash_d32.cu",
-        # q, k, v, o, BH, N, scale, is_bf16, stream
-        {"flash_d32_forward": [_P, _P, _P, _P, _I, _I, _F, _I, _P]},
+        {
+            # q, k, v, o, BH, N, scale, is_bf16, stream
+            "flash_d32_forward": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+            # q, k, v, o, lse, BH, N, scale, is_bf16, stream
+            "flash_d32_forward_lse": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+        },
+    ),
+    "flash_d32_bwd": (
+        "flash_d32_bwd.cu",
+        # q, k, v, o, do, lse, di (scratch), dq, dk, dv, BH, N, scale,
+        # is_bf16, stream
+        {"flash_d32_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _F, _I, _P]},
     ),
     "alias_free_act": (
         "alias_free_act.cu",

@@ -88,11 +88,27 @@ def check_act_inputs(name, x, alpha, beta):
         raise ValueError(f"{name}: empty input {tuple(x.shape)}")
 
 
+def refuse_gradient(name: str, roadmap_item: str, *tensors) -> None:
+    """The kernel has no backward yet: raise when a gradient would have to
+    flow through it, instead of returning an output that is cut out of the
+    autograd graph.  Serving runs under ``torch.inference_mode()`` and never
+    gets here."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in tensors):
+        raise RuntimeError(
+            f"{name}: a CUDA input or parameter requires grad, and the "
+            f"backward kernel is still to be ported (ROADMAP {roadmap_item}); "
+            f"call it under torch.inference_mode() or torch.no_grad(), or "
+            f"detach the inputs"
+        )
+
+
 def fused_alias_free_snake(x, alpha, beta, logscale: bool = True):
     """x: (B, C, T) float32 or bfloat16, contiguous; alpha/beta: (C,) raw
     snake parameters (log-space when ``logscale``).  Returns (B, C, T) in
     x's type.  A CUDA tensor launches the kernel (or raises); the plain
-    version is taken only for a tensor that lies on the CPU."""
+    version is taken only for a tensor that lies on the CPU.  Forward only:
+    on a card it raises when grad is enabled and x, alpha or beta requires
+    grad (the plain version on the CPU is differentiable)."""
     check_act_inputs("fused_alias_free_snake", x, alpha, beta)
     if x.device.type == "cpu":
         return alias_free_snake_plain(x, alpha, beta, logscale)
@@ -100,6 +116,7 @@ def fused_alias_free_snake(x, alpha, beta, logscale: bool = True):
         raise ValueError(f"fused_alias_free_snake: unsupported device {x.device}")
     if not x.is_contiguous():
         raise ValueError("fused_alias_free_snake: x must be contiguous")
+    refuse_gradient("fused_alias_free_snake", "B4", x, alpha, beta)
     a, inv_b = _effective(alpha, beta, logscale)
     out = torch.empty_like(x)
     b, c, t = x.shape

@@ -2,9 +2,17 @@
 //   o = softmax(q k^T * scale) v   on (B*H, N, 32), non-causal, no mask,
 // without materialising the N x N scores.
 //
-// Replaces the Pallas kernel _fwd_kernel (reached through flash_sdpa ->
-// _attn_core -> _fwd(save_residuals=False, exp2=True)) of
-// diffbinaural_tpu/ops/flash_d32.py.
+// Replaces the Pallas kernel _fwd_kernel of diffbinaural_tpu/ops/flash_d32.py
+// in both of its uses: flash_sdpa -> _attn_core -> _fwd(save_residuals=False,
+// exp2=True), the residual-free forward of the serving path
+// (flash_d32_forward), and _attn_core_fwd -> _fwd(save_residuals=True), the
+// training forward that also emits the softmax statistics
+// (flash_d32_forward_lse).  The TPU kernel writes the row max m and the row
+// sum l of exp(s - m), each broadcast over 128 lanes; here the training
+// forward writes ONE float32 per row, lse = m + log(l) in base e of the
+// scaled scores, which is all the backward needs.  Both uses are the same
+// kernels: a template flag adds the one store, so the residual-free
+// instance is the code it was.
 //
 // Bound by operations (4*N*N*32 FLOP per head against 4*N*32 elements
 // moved).  A block cannot hold a whole K/V panel as the TPU's VMEM did, so
@@ -29,48 +37,15 @@
 //    accumulator in registers; every thread reads the same K/V row at a
 //    time, so shared-memory reads are broadcasts; scores are taken 16 keys
 //    at a time, so the accumulator is rescaled once per 16 keys.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
-constexpr int FD = 32;        // head dimension
-constexpr int FQ = 128;       // query rows per block (one per thread)
-constexpr int FK = 64;        // keys per shared-memory tile
 constexpr int FC = 16;        // keys per online-softmax step
 
-__device__ __forceinline__ void load8(const float* p, float* dst) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
-}
-__device__ __forceinline__ void store8(float* p, const float* src) {
-  *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
-  *reinterpret_cast<float4*>(p + 4) =
-      make_float4(src[4], src[5], src[6], src[7]);
-}
-// Copy one tile of FK rows x 32 values (rows >= n_rows zero-filled) into
-// shared memory.  The tile is one contiguous run in global memory.
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
-                                          int n_rows, float* dst, int tid) {
-  for (int v = tid; v < FK * FD / 8; v += FQ) {
-    const int row = v / (FD / 8);
-    float vals[8];
-    if (row < n_rows) {
-      load8(src + (size_t)v * 8, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vals[i] = 0.0f;
-    }
-    store8(dst + v * 8, vals);
-  }
-}
-
+template <bool WRITE_LSE>
 __global__ void __launch_bounds__(FQ)
 flash_d32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int N,
-                 int n_qtiles, float qscale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int N, int n_qtiles, float qscale) {
   __shared__ __align__(16) float Ks[FK * FD];
   __shared__ __align__(16) float Vs[FK * FD];
 
@@ -151,53 +126,20 @@ flash_d32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int d = 0; d < FD; ++d) acc[d] *= inv_l;
 #pragma unroll
     for (int d = 0; d < FD; d += 8) store8(o + base + (size_t)row * FD + d, acc + d);
+    // m and l are in base 2 (scale * log2(e) is folded into q)
+    if (WRITE_LSE) lse[(size_t)bh * N + row] = (m + log2f(l)) * LN2;
   }
 }
 
 // ------------------------------------------------------------ tensor cores
 
-constexpr int MQ = 64;        // query rows per block: 4 warps x 16 rows
-constexpr int MK = 64;        // keys per shared-memory tile
-constexpr int MS = FD + 8;    // padded shared row, in bfloat16 values
-constexpr int MTHREADS = 128;
-
-// d (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col).  With
-// g = lane / 4 and t = lane % 4:  a0 = A[g][2t..], a1 = A[g+8][2t..],
-// a2 = A[g][2t+8..], a3 = A[g+8][2t+8..];  b0 = B[2t..][g], b1 = B[2t+8..][g];
-// c0,c1 = C[g][2t..], c2,c3 = C[g+8][2t..].
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// One 64 x 32 tile (rows >= n_rows zero-filled) into padded shared rows.
-__device__ __forceinline__ void load_tile_bf16(const __nv_bfloat16* __restrict__ src,
-                                               int n_rows, __nv_bfloat16* dst,
-                                               int tid) {
-  for (int v = tid; v < MK * FD / 8; v += MTHREADS) {
-    const int row = v >> 2;
-    const int ch = v & 3;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n_rows) raw = *reinterpret_cast<const uint4*>(src + (size_t)v * 8);
-    *reinterpret_cast<uint4*>(dst + row * MS + ch * 8) = raw;
-  }
-}
-
+template <bool WRITE_LSE>
 __global__ void __launch_bounds__(MTHREADS)
 flash_d32_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int N, int n_qtiles,
-                     float qscale) {
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int N, int n_qtiles, float qscale) {
   __shared__ __align__(16) __nv_bfloat16 Ks[MK * MS];
   __shared__ __align__(16) __nv_bfloat16 Vs[MK * MS];
 
@@ -214,17 +156,8 @@ flash_d32_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   // q as A fragments, two k-steps of 16 over the head dimension
   uint32_t qa[2][4];
-  {
-    const __nv_bfloat16* q_lo = q + base + (size_t)min(r_lo, N - 1) * FD;
-    const __nv_bfloat16* q_hi = q + base + (size_t)min(r_hi, N - 1) * FD;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      qa[ks][0] = *reinterpret_cast<const uint32_t*>(q_lo + 16 * ks + 2 * t);
-      qa[ks][1] = *reinterpret_cast<const uint32_t*>(q_hi + 16 * ks + 2 * t);
-      qa[ks][2] = *reinterpret_cast<const uint32_t*>(q_lo + 16 * ks + 8 + 2 * t);
-      qa[ks][3] = *reinterpret_cast<const uint32_t*>(q_hi + 16 * ks + 8 + 2 * t);
-    }
-  }
+  load_a_frags(q + base + (size_t)min(r_lo, N - 1) * FD,
+               q + base + (size_t)min(r_hi, N - 1) * FD, t, qa);
 
   float acc[4][4];              // o: 4 tiles of 8 head columns
 #pragma unroll
@@ -233,13 +166,7 @@ flash_d32_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 4; ++i) acc[dt][i] = 0.0f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.0f, l_hi = 0.0f;
 
-  // ldmatrix.x4.trans source row of this lane inside a 16-key x 16-column
-  // block of V: matrices (keys 0-7, cols 0-7), (keys 8-15, cols 0-7),
-  // (keys 0-7, cols 8-15), (keys 8-15, cols 8-15)
-  const int lm_row = ((lane >> 3) & 1) * 8 + (lane & 7);
-  const int lm_col = (lane >> 4) * 8;
-  const uint32_t vs_addr =
-      (uint32_t)__cvta_generic_to_shared(Vs + lm_row * MS + lm_col);
+  const uint32_t vs_addr = ldmatrix_lane_addr(Vs, lane);
 
   for (int k0 = 0; k0 < N; k0 += MK) {
     const int kv = min(MK, N - k0);
@@ -317,12 +244,7 @@ flash_d32_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int dp = 0; dp < 2; ++dp) {
         uint32_t b0, b1, b2, b3;
-        const uint32_t addr =
-            vs_addr + (uint32_t)((kk * 16 * MS + dp * 16) * sizeof(__nv_bfloat16));
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(addr));
+        ldmatrix_x4_trans(vs_addr, kk * 16, dp * 16, b0, b1, b2, b3);
         mma_16816(acc[2 * dp], pa, b0, b1);
         mma_16816(acc[2 * dp + 1], pa, b2, b3);
       }
@@ -346,26 +268,48 @@ flash_d32_mma_kernel(const __nv_bfloat16* __restrict__ q,
           pack_bf16(acc[dt][2] * inv_hi, acc[dt][3] * inv_hi);
     }
   }
+  if (WRITE_LSE && t == 0) {  // one lane of the quad that shares the row
+    if (r_lo < N) lse[(size_t)bh * N + r_lo] = (m_lo + log2f(l_lo)) * LN2;
+    if (r_hi < N) lse[(size_t)bh * N + r_hi] = (m_hi + log2f(l_hi)) * LN2;
+  }
 }
 
-extern "C" int flash_d32_forward(const void* q, const void* k, const void* v,
-                                 void* o, int BH, int N, float scale,
-                                 int is_bf16, void* stream) {
+template <bool WRITE_LSE>
+static int launch_forward(const void* q, const void* k, const void* v, void* o,
+                          float* lse, int BH, int N, float scale, int is_bf16,
+                          void* stream) {
   if (BH <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   const int rows = is_bf16 ? MQ : FQ;
   const int n_qtiles = (N + rows - 1) / rows;
   const long long blocks = (long long)BH * n_qtiles;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const float qscale = scale * 1.4426950408889634f;  // fold log2(e): exp2f below
+  const float qscale = scale * LOG2E;  // fold log2(e): exp2f in the kernels
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    flash_d32_mma_kernel<<<(unsigned)blocks, MTHREADS, 0, s>>>(
+    flash_d32_mma_kernel<WRITE_LSE><<<(unsigned)blocks, MTHREADS, 0, s>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, N, n_qtiles, qscale);
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, N, n_qtiles, qscale);
   } else {
-    flash_d32_kernel<<<(unsigned)blocks, FQ, 0, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, N,
+    flash_d32_kernel<WRITE_LSE><<<(unsigned)blocks, FQ, 0, s>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, N,
         n_qtiles, qscale);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int flash_d32_forward(const void* q, const void* k, const void* v,
+                                 void* o, int BH, int N, float scale,
+                                 int is_bf16, void* stream) {
+  return launch_forward<false>(q, k, v, o, nullptr, BH, N, scale, is_bf16,
+                               stream);
+}
+
+// The training forward: the same output plus lse (BH, N), float32.
+extern "C" int flash_d32_forward_lse(const void* q, const void* k,
+                                     const void* v, void* o, void* lse, int BH,
+                                     int N, float scale, int is_bf16,
+                                     void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_forward<true>(q, k, v, o, (float*)lse, BH, N, scale, is_bf16,
+                              stream);
 }

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .alias_free_act import _effective, alias_free_snake_plain, check_act_inputs
+from .alias_free_act import (_effective, alias_free_snake_plain,
+                             check_act_inputs, refuse_gradient)
 
 LANE = 128  # output channels per block of the kernel
 
@@ -56,7 +57,10 @@ def fused_snake_conv(x, alpha, beta, weight, bias, dilation: int = 1,
     ``F.conv1d`` layout (out, in, tap), already weight-normed; bias: (C,).
     Returns (B, C, T) in x's type.  Check :func:`snake_conv_eligible`
     first: anything else raises.  A CUDA tensor launches the kernel (or
-    raises); the plain version is taken only for a tensor on the CPU."""
+    raises); the plain version is taken only for a tensor on the CPU.
+    Forward only: on a card it raises when grad is enabled and x or a
+    parameter requires grad (the plain version on the CPU is
+    differentiable)."""
     if weight.dim() != 3:
         raise ValueError(f"fused_snake_conv: weight must be (C, C, k), got "
                          f"{tuple(weight.shape)}")
@@ -82,6 +86,7 @@ def fused_snake_conv(x, alpha, beta, weight, bias, dilation: int = 1,
         raise ValueError(f"fused_snake_conv: unsupported device {x.device}")
     if not x.is_contiguous():
         raise ValueError("fused_snake_conv: x must be contiguous")
+    refuse_gradient("fused_snake_conv", "B6", x, alpha, beta, weight, bias)
     a, inv_b = _effective(alpha, beta, logscale)
     # the kernel reads the weight tap-major, (k, C_in, C_out), in x's type
     w = weight.to(x.dtype).permute(2, 1, 0).contiguous()

@@ -56,3 +56,22 @@ def to_numpy_tree(params):
 
 def t(a):
     return torch.from_numpy(np.array(a, order="C"))
+
+
+# toy denoiser, the same arithmetic in both frameworks: reads x, t, the mono
+# mix (condition[0]), the visual feature and — unlike the real UNet — mix_t,
+# so that a wrong mix_t carry shows
+def toy_jax(x, tt, cond):
+    mix, feat, mix_t = cond
+    assert mix.shape[1] == 1 and mix_t.shape[1] == 2
+    s = jnp.sin(tt.astype(jnp.float32) * 0.01)[:, None, None, None]
+    f = jnp.tanh(feat.mean(axis=1))[:, None, None, None]
+    return 0.5 * x + 0.2 * mix + 0.1 * mix_t * s + 0.05 * f
+
+
+def toy_torch(x, tt, cond):
+    mix, feat, mix_t = cond
+    assert mix.shape[1] == 1 and mix_t.shape[1] == 2
+    s = torch.sin(tt.float() * 0.01)[:, None, None, None]
+    f = torch.tanh(feat.mean(dim=1))[:, None, None, None]
+    return 0.5 * x + 0.2 * mix + 0.1 * mix_t * s + 0.05 * f

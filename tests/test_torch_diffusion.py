@@ -1,4 +1,5 @@
-"""Port's diffusion schedules and DDIM sampler against the JAX package."""
+"""Port's diffusion schedules and samplers against the JAX package (the
+training loss is held in ``test_torch_train_stage1.py``)."""
 
 import dataclasses
 
@@ -13,7 +14,7 @@ from diffbinaural_tpu.diffusion.schedules import make_schedule as jax_schedule
 from diffbinaural_tpu_torch.diffusion import GaussianDiffusion, make_schedule
 
 from _torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
-from _torch_port_util import t
+from _torch_port_util import t, toy_jax as _toy_jax, toy_torch as _toy_torch
 
 
 @pytest.mark.parametrize("name", ["linear", "linear_alpha", "cosine", "sigmoid"])
@@ -37,25 +38,6 @@ def test_ddim_time_pairs(steps):
                             device="cpu")
     np.testing.assert_array_equal(got._ddim_time_pairs(steps),
                                   want._ddim_time_pairs(steps))
-
-
-# toy denoiser, the same arithmetic in both frameworks: reads x, t, the mono
-# mix (condition[0]), the visual feature and — unlike the real UNet — mix_t,
-# so that a wrong mix_t carry shows
-def _toy_jax(x, tt, cond):
-    mix, feat, mix_t = cond
-    assert mix.shape[1] == 1 and mix_t.shape[1] == 2
-    s = jnp.sin(tt.astype(jnp.float32) * 0.01)[:, None, None, None]
-    f = jnp.tanh(feat.mean(axis=1))[:, None, None, None]
-    return 0.5 * x + 0.2 * mix + 0.1 * mix_t * s + 0.05 * f
-
-
-def _toy_torch(x, tt, cond):
-    mix, feat, mix_t = cond
-    assert mix.shape[1] == 1 and mix_t.shape[1] == 2
-    s = torch.sin(tt.float() * 0.01)[:, None, None, None]
-    f = torch.tanh(feat.mean(dim=1))[:, None, None, None]
-    return 0.5 * x + 0.2 * mix + 0.1 * mix_t * s + 0.05 * f
 
 
 def _inputs(seed=0, b=3, hw=8):
@@ -173,6 +155,89 @@ def test_q_sample_and_predictions_match_jax():
         got = getattr(td, name)(*(t(a) for a in args)).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
                                    err_msg=name)
+
+
+def _jax_ancestral_noises(rng_init, rng_steps, shape, steps):
+    """The draws of the JAX ancestral loops: x_T from ``rng_init``, then one
+    key per step from ``rng_steps``."""
+    keys = jax.random.split(rng_steps, steps)
+    return np.stack(
+        [np.asarray(jax.random.normal(rng_init, shape))]
+        + [np.asarray(jax.random.normal(k, shape, jnp.float32)) for k in keys])
+
+
+def test_p_sample_loop_matches_jax():
+    mix, feat = _inputs(seed=6)
+    cond = (mix, feat, np.repeat(mix, 2, axis=1))
+    key = jax.random.PRNGKey(11)
+    jd = JaxDiffusion(image_size=8, timesteps=12)
+    want = np.asarray(jd.p_sample_loop(
+        _toy_jax, tuple(jnp.asarray(c) for c in cond), (3, 2, 8, 8), key,
+        return_all_timesteps=True))
+    noises = _jax_ancestral_noises(*jax.random.split(key), (3, 2, 8, 8), 12)
+    td = GaussianDiffusion(image_size=8, timesteps=12, device="cpu")
+    got = td.p_sample_loop(_toy_torch, tuple(t(c) for c in cond), (3, 2, 8, 8),
+                           noises=t(noises), return_all_timesteps=True)
+    assert got.shape == (3, 13, 2, 8, 8)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    last = td.p_sample_loop(_toy_torch, tuple(t(c) for c in cond),
+                            (3, 2, 8, 8), noises=t(noises))
+    np.testing.assert_allclose(last.numpy(), want[:, -1], rtol=1e-5, atol=1e-5)
+    drawn = td.p_sample_loop(_toy_torch, tuple(t(c) for c in cond),
+                             (3, 2, 8, 8),
+                             generator=torch.Generator().manual_seed(0))
+    assert drawn.shape == (3, 2, 8, 8) and torch.isfinite(drawn).all()
+
+
+def test_interpolate_matches_jax():
+    rng = np.random.default_rng(8)
+    x1, x2 = (rng.uniform(0, 1, (2, 2, 8, 8)).astype(np.float32)
+              for _ in range(2))
+    key = jax.random.PRNGKey(5)
+    toy_j = lambda x, tt, cond: 0.3 * x + jnp.sin(tt * 0.1)[:, None, None, None]  # noqa: E731
+    toy_t = lambda x, tt, cond: 0.3 * x + torch.sin(tt * 0.1)[:, None, None, None]  # noqa: E731
+    jd = JaxDiffusion(image_size=8, timesteps=20)
+    want = np.asarray(jd.interpolate(toy_j, jnp.asarray(x1), jnp.asarray(x2),
+                                     key, t=9, lam=0.3))
+    rng_n, rng_steps = jax.random.split(key)
+    k1, k2 = jax.random.split(rng_n)
+    steps = _jax_ancestral_noises(k1, rng_steps, x1.shape, 9)
+    noises = np.concatenate(
+        [steps[:1], np.asarray(jax.random.normal(k2, x2.shape))[None],
+         steps[1:]])
+    td = GaussianDiffusion(image_size=8, timesteps=20, device="cpu")
+    got = td.interpolate(toy_t, t(x1), t(x2), t=9, lam=0.3, noises=t(noises))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_q_posterior_and_process_xstart_match_jax():
+    rng = np.random.default_rng(9)
+    x0 = rng.standard_normal((4, 2, 8, 8)).astype(np.float32)
+    xt = rng.standard_normal((4, 2, 8, 8)).astype(np.float32)
+    tt = np.array([0, 10, 50, 99], np.int32)
+    jd = JaxDiffusion(image_size=8, timesteps=100)
+    td = GaussianDiffusion(image_size=8, timesteps=100, device="cpu")
+    want = jd.q_posterior(jnp.asarray(x0), jnp.asarray(xt), jnp.asarray(tt))
+    for g, w in zip(td.q_posterior(t(x0), t(xt), t(tt)), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
+    for dyn in (False, True):
+        np.testing.assert_allclose(
+            td.process_xstart(t(x0), dynamic_threshold=dyn).numpy(),
+            np.asarray(jd.process_xstart(jnp.asarray(x0), dynamic_threshold=dyn)),
+            rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("objective", ["pred_noise", "pred_x0", "pred_v"])
+@pytest.mark.parametrize("min_snr", [False, True])
+def test_loss_weight_matches_jax(objective, min_snr):
+    kwargs = dict(timesteps=100, objective=objective,
+                  min_snr_loss_weight=min_snr, min_snr_gamma=3.0,
+                  p2_loss_weight_gamma=0.5, p2_loss_weight_k=2.0)
+    jd, td = JaxDiffusion(**kwargs), GaussianDiffusion(device="cpu", **kwargs)
+    np.testing.assert_allclose(td.loss_weight.numpy(), jd.loss_weight,
+                               rtol=2e-5)
+    np.testing.assert_allclose(td.schedule.p2_loss_weight.numpy(),
+                               jd.schedule.p2_loss_weight, rtol=1e-6)
 
 
 @pytest.mark.parametrize("name", ["DiffusionConfig", "UnetConfig", "VocoderConfig"])

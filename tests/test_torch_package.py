@@ -20,9 +20,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = pathlib.Path(diffbinaural_tpu_torch.__file__).resolve().parent
 
 
+def _sources():
+    """The package's Python files; ``build/`` holds what the kernels' build
+    leaves behind and is no part of the package."""
+    return [p for p in sorted(PACKAGE.rglob("*.py"))
+            if "build" not in p.relative_to(PACKAGE).parts]
+
+
 def _modules():
     names = []
-    for path in sorted(PACKAGE.rglob("*.py")):
+    for path in _sources():
         rel = path.relative_to(PACKAGE.parent).with_suffix("")
         parts = list(rel.parts)
         if parts[-1] == "__init__":
@@ -34,12 +41,15 @@ def _modules():
 def test_every_module_imports_without_jax():
     names = _modules()
     assert len(names) >= 20
+    for sub in ("train", "train.stage1", "train.stabilizer", "data",
+                "data.audio_io", "signal.stft"):
+        assert f"diffbinaural_tpu_torch.{sub}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'diffbinaural_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'diffbinaural_tpu')]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
         "print('imported', len(sys.modules))\n"
@@ -51,13 +61,13 @@ def test_every_module_imports_without_jax():
 
 
 def test_sources_name_no_jax_import():
-    for path in list(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in _sources() + [ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1].split(".")[0]
-                assert mod not in ("jax", "jaxlib", "flax", "diffbinaural_tpu"), (
-                    path, line)
+                assert mod not in ("jax", "jaxlib", "flax", "optax",
+                                   "diffbinaural_tpu"), (path, line)
 
 
 def test_importing_builds_and_loads_nothing():
@@ -83,21 +93,21 @@ def test_tap_header_holds_the_designed_filter():
         assert f"#define AFA_H{i} ({float(v)!r}f)" in header
 
 
-
-
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
 
 
 @pytest.mark.parametrize("entry", ["build_unet", "build_vocoder", "pipeline",
-                                   "diffusion", "sampler", "vocoder"])
+                                   "diffusion", "sampler", "vocoder",
+                                   "train_step"])
 def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
     _no_card()
     from diffbinaural_tpu_torch.diffusion import GaussianDiffusion
     from diffbinaural_tpu_torch.infer import (BinauralPipeline, Stage1Sampler,
                                               Vocoder)
     from diffbinaural_tpu_torch.models import build_unet, build_vocoder
+    from diffbinaural_tpu_torch.train import make_stage1_train_step
 
     calls = {
         "build_unet": lambda: build_unet(UnetConfig(dim=16)),
@@ -106,6 +116,7 @@ def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
         "diffusion": lambda: GaussianDiffusion(),
         "sampler": lambda: Stage1Sampler(None),
         "vocoder": lambda: Vocoder(),
+        "train_step": lambda: make_stage1_train_step(torch.nn.Linear(2, 2)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -134,8 +145,11 @@ def test_wrappers_on_cpu_tensors_leave_launch_counts_at_zero():
     a = torch.zeros(128)
     ops.fused_alias_free_snake(x, a, a)
     ops.fused_snake_conv(x, a, a, torch.randn(128, 128, 3) * 0.02, a, 1)
-    assert ops.launch_counts() == {"flash_sdpa": 0, "fused_alias_free_snake": 0,
-                                   "fused_snake_conv": 0}
+    ops.flash_sdpa_backward(q, q, q, *ops.flash_sdpa_with_lse(q, q, q, 0.2), q,
+                            0.2)
+    assert ops.launch_counts() == {
+        "flash_sdpa": 0, "flash_sdpa_with_lse": 0, "flash_sdpa_backward": 0,
+        "fused_alias_free_snake": 0, "fused_snake_conv": 0}
 
 
 def test_wrappers_never_take_the_plain_version_for_another_device():
@@ -144,6 +158,11 @@ def test_wrappers_never_take_the_plain_version_for_another_device():
     q = torch.empty(1, 2, 16, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flash_sdpa(q, q, q, 0.2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.flash_sdpa_with_lse(q, q, q, 0.2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.flash_sdpa_backward(q, q, q, q, torch.empty(1, 2, 16, device="meta"),
+                                q, 0.2)
     x = torch.empty(1, 128, 24, device="meta")
     a = torch.empty(128, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
