@@ -14,7 +14,12 @@ weights from a seed:
   * stage-1 training — one step's loss and every parameter's gradient
     through the kernels against the same through the plain versions
     (float32, batch 2), then optimiser steps in bfloat16 at batch 16 on a
-    batch made by the port's mel frontend from a synthetic stereo signal.
+    batch made by the port's mel frontend from a synthetic stereo signal;
+  * stage-2 GAN training at the production configuration
+    (``configs/bigvgan_binaural_22khz_80band_256x.json``: the full-width
+    generator, MPD and sub-band CQTD) — one D+G step through the kernels
+    against the same through the plain versions (float32, batch 2), then
+    optimiser steps with a bfloat16 generator at batch 16 x 16384 samples.
 
 Each path's launch counts are set to 0 before it and checked after it.
 Every phase prints one JSON line; any failure exits non-zero.  There is no
@@ -23,8 +28,8 @@ result.
 
     python3 chip_smoke.py --trace 10
 
-also traces 10 UNet calls, one vocoder pass and 3 train steps with
-``torch.profiler`` and prints, for each, the wall time, the summed device
+also traces 10 UNet calls, one vocoder pass, 3 stage-1 and 3 stage-2 train
+steps with ``torch.profiler`` and prints, for each, the wall time, the summed device
 time, the device's busy share and the ten kernels with the most device time.
 
 Float32 comparisons run with TF32 switched off for both matmuls and cuDNN
@@ -40,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -54,6 +60,12 @@ CLIP_SECONDS, SR, HOP, WINDOW, UNET_BATCH, DDIM_STEPS = 10.0, 22050, 256, 80, 8,
 BF16_UNET_TOL = 5e-2  # of the output's scale, see phase_main_path_check
 TRAIN_BATCH, TRAIN_STEPS = 16, 5
 ATTN_PER_STEP = 4  # Attention layers with n >= 1024: two at 6400, two at 1600
+GAN_CONFIG = "configs/bigvgan_binaural_22khz_80band_256x.json"
+GAN_BATCH, GAN_SEGMENT, GAN_STEPS = 16, 16384, 5
+# a generator pass: 109 anti-aliased activations, 12 of them (C = 768,
+# k <= 7) fused into the next convolution; each K3b recomputes the
+# activation with K2 and ends in K2b
+ACT_PER_PASS, FUSED_PER_PASS = 97, 12
 
 
 def launches(**nonzero) -> dict:
@@ -66,6 +78,7 @@ def launches(**nonzero) -> dict:
 # which path gives a kernel its launch count in the `kernels` line
 SERVING_KERNELS = ("flash_sdpa", "fused_alias_free_snake", "fused_snake_conv")
 TRAINING_KERNELS = ("flash_sdpa_with_lse", "flash_sdpa_backward")
+GAN_KERNELS = ("fused_alias_free_snake_backward", "fused_snake_conv_backward")
 SOURCES = {
     "flash_sdpa": ("diffbinaural_tpu_torch/ops/csrc/flash_d32.cu",
                    "diffbinaural_tpu/ops/flash_d32.py:175"),
@@ -78,6 +91,14 @@ SOURCES = {
         "diffbinaural_tpu/ops/alias_free_act.py:607"),
     "fused_snake_conv": ("diffbinaural_tpu_torch/ops/csrc/snake_conv.cu",
                          "diffbinaural_tpu/ops/snake_conv.py:166"),
+    "fused_alias_free_snake_backward": (
+        "diffbinaural_tpu_torch/ops/csrc/alias_free_act_bwd.cu",
+        "diffbinaural_tpu/ops/alias_free_act.py:673"),
+    # K3b: K2 + the convolution's gradients + K2b (no kernel file of its own,
+    # as the TPU code has no pallas_call of its own there)
+    "fused_snake_conv_backward": (
+        "diffbinaural_tpu_torch/ops/snake_conv.py",
+        "diffbinaural_tpu/ops/snake_conv.py:204"),
 }
 
 
@@ -369,6 +390,8 @@ def check_k1_training(gen, results):
 
 K2_STAGES = [(768, 3444), (384, 13776), (192, 27552), (96, 55104),
              (48, 110208), (24, 220416)]
+GAN_STAGES = [(768, 256), (384, 1024), (192, 2048), (96, 4096), (48, 8192),
+              (24, 16384)]  # the stage-2 step's six (C, T) at batch 16
 # per sample: two up-FIR phases (6 mul + 5 add + gain), two snakes (3 mul,
 # sine, add), one 12-tap down-FIR (12 mul + 11 add); the sine counts as one
 K2_OPS_PER_SAMPLE = 2 * 12 + 2 * 5 + 23
@@ -378,30 +401,34 @@ def check_k2(gen, results):
     """fused_alias_free_snake vs its plain version, all samples.  float32:
     1e-5 (same float32 arithmetic, other summation order and another sine);
     bfloat16: both round one float32 result to bfloat16 — 8e-3 of the
-    output's scale (two bfloat16 steps)."""
+    output's scale (two bfloat16 steps).  The serving shapes are timed; the
+    stage-2 shapes (T = 256 is shorter than one tile) and a ragged clip are
+    compared."""
     from diffbinaural_tpu_torch.ops import (alias_free_snake_plain,
                                             fused_alias_free_snake)
 
-    for c, t in K2_STAGES + [(48, 1001)]:
+    shapes = ([(2, c, t) for c, t in K2_STAGES]
+              + [(GAN_BATCH, c, t) for c, t in GAN_STAGES] + [(2, 48, 1001)])
+    for b, c, t in shapes:
         for dtype, tol, rel in ((torch.float32, 1e-5, False),
                                 (torch.bfloat16, 8e-3, True)):
-            x = rand(gen, (2, c, t), dtype)
+            x = rand(gen, (b, c, t), dtype)
             alpha = rand(gen, (c,), torch.float32, 0.3)
             beta = rand(gen, (c,), torch.float32, 0.3)
             got = fused_alias_free_snake(x, alpha, beta, True)
             want = alias_free_snake_plain(x, alpha, beta, True)
-            err = _compare("fused_alias_free_snake", (c, t, dt_name(dtype)),
+            err = _compare("fused_alias_free_snake", (b, c, t, dt_name(dtype)),
                            got, want, tol, rel)
-            case = {"kernel": "fused_alias_free_snake", "shape": [2, c, t],
+            case = {"kernel": "fused_alias_free_snake", "shape": [b, c, t],
                     "dtype": dt_name(dtype), "max_err": err, "tol": tol,
                     "tol_relative_to_output_scale": rel}
-            if t != 1001:
+            if (c, t) in K2_STAGES:
                 case["ms"] = time_ms(
                     lambda: fused_alias_free_snake(x, alpha, beta, True))
                 case["plain_ms"] = time_ms(
                     lambda: alias_free_snake_plain(x, alpha, beta, True))
                 case["library_ms"] = None
-                n = 2.0 * c * t
+                n = float(b * c * t)
                 _bound(case, K2_OPS_PER_SAMPLE * n,
                        2 * n * x.element_size() + 8 * c, "fp32")
             del got, want
@@ -413,11 +440,13 @@ def check_k3(gen, results):
     ``F.conv1d``).  float32: 2e-4 of the output's scale (sums of 768*k terms
     in another order); bfloat16: 2e-2 of the output's scale (the plain
     version rounds the activation to bfloat16 before the convolution, the
-    kernel keeps it in float32)."""
+    kernel keeps it in float32).  The serving shapes are timed; the stage-2
+    shapes and a 40-sample clip are compared."""
     from diffbinaural_tpu_torch.ops import fused_snake_conv, snake_conv_plain
 
     c = 768
-    cases = [(2, 3444, k, d) for k in (3, 7) for d in (1, 3, 5)]
+    cases = [(b, t, k, d) for b, t in ((2, 3444), (GAN_BATCH, 256))
+             for k in (3, 7) for d in (1, 3, 5)]
     cases.append((1, 40, 7, 5))  # one tile that crosses both clip edges
     for b, t, k, d in cases:
         for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
@@ -446,11 +475,133 @@ def check_k3(gen, results):
             results.append(case)
 
 
+# per sample: two up-FIR phases recomputed (12 each), two adjoint down-FIR
+# phases (12 each), two snake derivatives (~10 each, sincos as one), one
+# adjoint up-FIR (24)
+K2B_OPS_PER_SAMPLE = 2 * 12 + 2 * 12 + 2 * 10 + 24
+
+
+def _grad_case(name, case, got, want, labels, tol):
+    """Compare gradient tuples: each against ``tol`` of its own scale (an
+    absolute floor of 1e-6 of the largest keeps tiny sums from failing on
+    rounding).  Returns the worst error as a share of its gradient's
+    scale."""
+    top = max(w.float().abs().max().item() for w in want)
+    worst = 0.0
+    for label, g, w in zip(labels, got, want):
+        scale = w.float().abs().max().item()
+        err = _compare(name, (*case, label), g, w, tol + 1e-6 * top / max(
+            scale, 1e-30), relative=True)
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def check_k2b(gen, results):
+    """fused_alias_free_snake_backward (K2b) vs its plain version, dx, d alpha
+    and d beta on every sample, edges included.  float32: 2e-5 of each
+    gradient's scale (same float32 arithmetic, other order; sincos against
+    sin); bfloat16: dx 8e-3 of its scale (both round one float32 result to
+    bfloat16), d alpha / d beta 2e-5 (float32 sums of the same products).
+    The six stage-2 shapes are timed; ragged shapes — T = 7 (shorter than
+    the filters' reach), 40 (one tile holding both edges), 1001 (several
+    tiles) at narrow and wide C — are compared."""
+    from diffbinaural_tpu_torch.ops import (alias_free_snake_backward_plain,
+                                            fused_alias_free_snake_backward)
+
+    ragged = [(2, c, t) for c in (24, 768) for t in (7, 40, 1001)]
+    for shape in [(GAN_BATCH, c, t) for c, t in GAN_STAGES] + ragged:
+        b, c, t = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dz = rand(gen, shape, dtype), rand(gen, shape, dtype)
+            alpha = rand(gen, (c,), torch.float32, 0.3)
+            beta = rand(gen, (c,), torch.float32, 0.3)
+            got = fused_alias_free_snake_backward(x, dz, alpha, beta, True)
+            want = alias_free_snake_backward_plain(x, dz, alpha, beta, True)
+            tol_dx = 8e-3 if dtype == torch.bfloat16 else 2e-5
+            worst = _grad_case("fused_alias_free_snake_backward",
+                               (shape, dt_name(dtype)), got[:1], want[:1],
+                               ("dx",), tol_dx)
+            worst_p = _grad_case("fused_alias_free_snake_backward",
+                                 (shape, dt_name(dtype)), got[1:], want[1:],
+                                 ("dalpha", "dbeta"), 2e-5)
+            case = {"kernel": "fused_alias_free_snake_backward",
+                    "shape": list(shape), "dtype": dt_name(dtype),
+                    "max_err": max((g.float() - w.float()).abs().max().item()
+                                   for g, w in zip(got, want)),
+                    "dx_err_of_scale": worst, "dx_tol_of_scale": tol_dx,
+                    "dparam_err_of_scale": worst_p, "dparam_tol_of_scale": 2e-5}
+            if b == GAN_BATCH:
+                case["ms"] = time_ms(lambda: fused_alias_free_snake_backward(
+                    x, dz, alpha, beta, True))
+                case["plain_ms"] = time_ms(
+                    lambda: alias_free_snake_backward_plain(x, dz, alpha, beta,
+                                                            True))
+                case["library_ms"] = None
+                n = float(b * c * t)
+                # x and dz read, dx written; alpha, beta read and the
+                # per-channel gradients written in float32
+                _bound(case, K2B_OPS_PER_SAMPLE * n,
+                       3 * n * x.element_size() + 16 * c, "fp32")
+            del got, want
+            results.append(case)
+
+
+def check_k3b(gen, results):
+    """fused_snake_conv_backward (K3b: K2, the convolution's gradients, K2b)
+    vs its plain version (autograd through ``snake_conv_plain``): dx,
+    d alpha, d beta, dW, db.  float32: 1e-4 of each gradient's scale (sums
+    of 768*k or B*T terms in another order); bfloat16: 3e-2 (the plain
+    version rounds the activation to bfloat16 before the convolution and its
+    gradients; dW sums B*T = 4096 bfloat16 products).  The stage-2 shapes
+    are timed; a 40-sample clip (one tile, both edges) is compared."""
+    from diffbinaural_tpu_torch.ops import (fused_snake_conv_backward,
+                                            snake_conv_backward_plain)
+
+    c = 768
+    cases = [(GAN_BATCH, 256, k, d) for k in (3, 7) for d in (1, 3, 5)]
+    cases.append((2, 40, 7, 5))
+    labels = ("dx", "dalpha", "dbeta", "dW", "db")
+    for b, t, k, d in cases:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            x, dy = rand(gen, (b, c, t), dtype), rand(gen, (b, c, t), dtype)
+            alpha = rand(gen, (c,), torch.float32, 0.3)
+            beta = rand(gen, (c,), torch.float32, 0.3)
+            w = rand(gen, (c, c, k), dtype, 0.02)
+            bias = rand(gen, (c,), torch.float32, 0.1)
+            args = (x, dy, alpha, beta, w, bias, d, True)
+            got = fused_snake_conv_backward(*args)
+            want = snake_conv_backward_plain(*args)
+            worst = _grad_case("fused_snake_conv_backward",
+                               (b, c, t, k, d, dt_name(dtype)), got, want,
+                               labels, tol)
+            case = {"kernel": "fused_snake_conv_backward", "shape": [b, c, t],
+                    "k": k, "dilation": d, "dtype": dt_name(dtype),
+                    "max_err": max((g.float() - v.float()).abs().max().item()
+                                   for g, v in zip(got, want)),
+                    "worst_err_of_scale": worst, "tol_of_scale": tol}
+            if b == GAN_BATCH:
+                case["ms"] = time_ms(lambda: fused_snake_conv_backward(*args))
+                case["plain_ms"] = time_ms(
+                    lambda: snake_conv_backward_plain(*args))
+                case["library_ms"] = None
+                n = float(b * c * t)
+                # dz and dW: two products of 2 B T k C^2; K2 and K2b around
+                flops = (4.0 * b * t * k * c * c
+                         + (K2_OPS_PER_SAMPLE + K2B_OPS_PER_SAMPLE) * n)
+                # x, dy, W read; dx, dW written; the per-channel vectors
+                nbytes = (3 * n + 2 * k * c * c) * x.element_size() + 28 * c
+                _bound(case, flops, nbytes, dt_name(dtype))
+            del got, want
+            results.append(case)
+
+
 def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     results: list = []
     check_k2(gen, results)
+    check_k2b(gen, results)
     check_k3(gen, results)
+    check_k3b(gen, results)
     check_k1(gen, results)
     torch.cuda.empty_cache()
     check_k1_training(gen, results)
@@ -696,53 +847,43 @@ def phase_main_path(trace_steps: int = 0) -> dict:
 # ----------------------------------------------------------- training path
 
 
-def phase_grad_refusal() -> None:
-    """The forward-only wrappers refuse a CUDA input that requires grad (no
-    silent cut of the autograd graph); the attention's output carries a
-    grad_fn and gradients reach q, k and v."""
+def phase_grad_flow() -> None:
+    """On the card every differentiable wrapper — ``flash_sdpa``,
+    ``fused_alias_free_snake``, ``fused_snake_conv`` — returns an output with
+    a grad_fn when its inputs require grad and none under ``no_grad``, and a
+    finite, non-zero gradient reaches every input."""
     from diffbinaural_tpu_torch import ops
 
     c = 768
     x = torch.randn((1, c, 64), device="cuda")
-    alpha = torch.zeros(c, device="cuda")
+    alpha = torch.randn(c, device="cuda") * 0.3
     w = torch.randn((c, c, 3), device="cuda") * 0.02
+    q = torch.randn((1, 4, 1600, 32), device="cuda")
     calls = {
-        "fused_alias_free_snake: x": lambda: ops.fused_alias_free_snake(
-            x.clone().requires_grad_(), alpha, alpha),
-        "fused_alias_free_snake: alpha": lambda: ops.fused_alias_free_snake(
-            x, alpha.clone().requires_grad_(), alpha),
-        "fused_snake_conv: x": lambda: ops.fused_snake_conv(
-            x.clone().requires_grad_(), alpha, alpha, w, alpha),
-        "fused_snake_conv: weight": lambda: ops.fused_snake_conv(
-            x, alpha, alpha, w.clone().requires_grad_(), alpha),
+        "flash_sdpa": (lambda a, b, v: ops.flash_sdpa(a, b, v, 32 ** -0.5),
+                       (q, q.flip(2), q.flip(3))),
+        "fused_alias_free_snake": (ops.fused_alias_free_snake,
+                                   (x, alpha, alpha.flip(0))),
+        "fused_snake_conv": (ops.fused_snake_conv,
+                             (x, alpha, alpha.flip(0), w, alpha * 0.1)),
     }
-    refused = []
-    for label, call in calls.items():
-        try:
-            call()
-        except RuntimeError as exc:
-            if "ROADMAP" not in str(exc):
-                raise
-            refused.append(label)
-        else:
-            fail(f"grad_refusal: {label} requires grad and was not refused")
-        with torch.no_grad():  # the same call without a gradient runs
-            call()
-    q, k, v = (torch.randn((1, 4, 1600, 32), device="cuda", requires_grad=True)
-               for _ in range(3))
-    out = ops.flash_sdpa(q, k, v, 32 ** -0.5)
-    if out.grad_fn is None:
-        fail("grad_refusal: flash_sdpa's output has no grad_fn")
-    out.sum().backward()
-    torch.cuda.synchronize()
-    for name, a in (("q", q), ("k", k), ("v", v)):
-        if a.grad is None or not torch.isfinite(a.grad).all():
-            fail(f"grad_refusal: no finite gradient reached {name}")
-    with torch.no_grad():
-        if ops.flash_sdpa(q, k, v, 32 ** -0.5).grad_fn is not None:
-            fail("grad_refusal: flash_sdpa under no_grad has a grad_fn")
-    emit({"phase": "grad_refusal", "refused": refused,
-          "flash_sdpa_grad_fn": type(out.grad_fn).__name__})
+    grad_fns = {}
+    for name, (fn, inputs) in calls.items():
+        leaves = [a.clone().requires_grad_() for a in inputs]
+        out = fn(*leaves)
+        if out.grad_fn is None:
+            fail(f"grad_flow: {name}'s output has no grad_fn")
+        grad_fns[name] = type(out.grad_fn).__name__
+        grads = torch.autograd.grad(out.square().sum(), leaves)
+        torch.cuda.synchronize()
+        for i, g in enumerate(grads):
+            if not torch.isfinite(g).all() or not g.abs().max() > 0:
+                fail(f"grad_flow: no finite non-zero gradient reached input "
+                     f"{i} of {name}")
+        with torch.no_grad():
+            if fn(*leaves).grad_fn is not None:
+                fail(f"grad_flow: {name} under no_grad has a grad_fn")
+    emit({"phase": "grad_flow", "grad_fn": grad_fns})
 
 
 def synthetic_batch(batch: int, seed: int) -> dict:
@@ -924,6 +1065,282 @@ def phase_train_path(trace_steps: int = 0) -> dict:
     return out
 
 
+# ------------------------------------------------------- stage-2 GAN path
+
+
+def build_gan(gen_dtype, seed: int):
+    """The production configuration's generator (compute type
+    ``gen_dtype``, float32 parameters) and discriminators (float32)."""
+    from diffbinaural_tpu_torch.core.config import (VocoderConfig,
+                                                    load_hparams_from_json)
+    from diffbinaural_tpu_torch.models import (build_discriminators,
+                                               build_vocoder)
+
+    h = load_hparams_from_json(GAN_CONFIG)
+    gen = build_vocoder(VocoderConfig.from_attrdict(h), dtype=gen_dtype,
+                        seed=seed)
+    mpd, mrd = build_discriminators(h, seed=seed + 1)
+    return h, gen, mpd, mrd
+
+
+def make_gan_step(h, gen, mpd, mrd):
+    """``make_stage2_train_step`` wired as the JAX package's GAN trainer
+    wires it from the config (``cli/gan_common.py``)."""
+    from diffbinaural_tpu_torch.losses import MultiScaleMelSpectrogramLoss
+    from diffbinaural_tpu_torch.signal import mel_spectrogram
+    from diffbinaural_tpu_torch.train import make_stage2_train_step
+
+    def mel_fn(wav):
+        return mel_spectrogram(wav, h["n_fft"], h["num_mels"],
+                               h["sampling_rate"], h["hop_size"], h["win_size"],
+                               h["fmin"], h.get("fmax_for_loss"))
+
+    return make_stage2_train_step(
+        gen, mpd, mrd, mel_fn,
+        MultiScaleMelSpectrogramLoss(h["sampling_rate"]),
+        learning_rate=h["learning_rate"], adam_b1=h["adam_b1"],
+        adam_b2=h["adam_b2"], lr_decay=h["lr_decay"],
+        clip_grad_norm=h.get("clip_grad_norm", 1000.0),
+        lambda_melloss=h.get("lambda_melloss", 45.0), freeze_step=0,
+        use_multiscale_melloss=h.get("use_multiscale_melloss", False),
+        silence_threshold_db=h.get("silence_threshold_db", -50.0))
+
+
+def gan_batch(h, batch: int, seed: int) -> dict:
+    """``batch`` segments of ``GAN_SEGMENT`` samples of a seeded synthetic
+    signal (drifting tones, noise, a silent stretch in some segments), with
+    their ln-mels (64 frames) from the port's own mel frontend."""
+    from diffbinaural_tpu_torch.signal import mel_spectrogram
+
+    rng = np.random.default_rng(seed)
+    time_s = np.arange(GAN_SEGMENT) / h["sampling_rate"]
+    audio = 0.005 * rng.standard_normal((batch, GAN_SEGMENT))
+    for i in range(batch):
+        for f0 in rng.uniform(80.0, 6000.0, 4):
+            drift = 1.0 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.5, 3) * time_s)
+            audio[i] += rng.uniform(0.02, 0.2) * np.sin(
+                2 * np.pi * f0 * drift * time_s + rng.uniform(0, 2 * np.pi))
+        if i % 4 == 3:
+            audio[i, GAN_SEGMENT // 2:] *= 1e-3
+    audio = torch.from_numpy(np.clip(audio, -1, 1).astype(np.float32)).cuda()
+
+    def mel(fmax):
+        return mel_spectrogram(audio, h["n_fft"], h["num_mels"],
+                               h["sampling_rate"], h["hop_size"], h["win_size"],
+                               h["fmin"], fmax)
+
+    out = {"mel": mel(h["fmax"]), "audio": audio,
+           "mel_loss": mel(h.get("fmax_for_loss"))}
+    if out["mel"].shape != (batch, h["num_mels"], GAN_SEGMENT // h["hop_size"]):
+        fail(f"gan batch: mel shape {tuple(out['mel'].shape)}")
+    return out
+
+
+def gan_launches(steps: int) -> dict:
+    per_step = dict(fused_alias_free_snake=ACT_PER_PASS + FUSED_PER_PASS,
+                    fused_alias_free_snake_backward=ACT_PER_PASS + FUSED_PER_PASS,
+                    fused_snake_conv=FUSED_PER_PASS,
+                    fused_snake_conv_backward=FUSED_PER_PASS)
+    return launches(**{k: v * steps for k, v in per_step.items()})
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms without autotuning, and PyTorch's
+    deterministic implementation of every op that has one.  An op that has
+    none warns instead of raising; the warnings are yielded so the caller
+    can report which ops those were."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+GAN_METRICS = ("loss_disc", "loss_gen_all", "loss_mel", "loss_fm",
+               "grad_norm_g")
+GAN_METRIC_TOL = 1e-4  # relative; float32 sums in another order
+# of each gradient's own scale, with deterministic algorithms; on an H100
+# kernels vs plain measured 1.6e-5 (generator: K2b's float32 order against
+# the plain adjoint's) and 4.6e-7 (discriminators: only the last bits of the
+# generator's output differ); the kernel path against itself measured 0.0
+STAGE2_GRAD_TOL = {"generator": 1e-4, "discriminators": 1e-5}
+STAGE2_REPEAT_TOL = 1e-6
+
+
+def phase_stage2_check() -> None:
+    """One stage-2 D+G step at the production configuration in float32
+    (TF32 off), batch 2 x 16384 samples, from one state: through the
+    kernels against through the plain versions, with deterministic
+    algorithms (``deterministic_algorithms``) so that the kernel path
+    repeats.  The six metrics (relative ``GAN_METRIC_TOL``), every
+    generator and discriminator gradient (the clipped ones the optimiser
+    took: ``STAGE2_GRAD_TOL`` of its own scale, set apart for the generator
+    and the discriminators, plus ``TRAIN_CHECK_FLOOR`` of the largest), and
+    every updated parameter (within 2 lr: Adam's first
+    step moves a parameter by at most about lr, and a gradient that is zero
+    up to rounding may point either way).  The path through the kernels
+    runs twice; the worst difference between its own two runs is printed
+    beside the worst difference from the plain versions, and must be below
+    ``STAGE2_REPEAT_TOL``."""
+    from diffbinaural_tpu_torch import ops
+
+    b = 2
+    h, gen, mpd, mrd = build_gan(torch.float32, seed=21)
+    modules = {"generator": gen, "mpd": mpd, "mrd": mrd}
+    start = {k: {n: v.clone() for n, v in m.state_dict().items()}
+             for k, m in modules.items()}
+    batch = gan_batch(h, b, seed=22)
+
+    def run():
+        for k, m in modules.items():
+            m.load_state_dict(start[k])
+        init_fn, step_fn = make_gan_step(h, gen, mpd, mrd)
+        state, metrics = step_fn(init_fn(), batch)
+        torch.cuda.synchronize()
+        grads = {f"{k}.{n}": p.grad.clone() for k, m in modules.items()
+                 for n, p in m.named_parameters()}
+        params = {f"{k}.{n}": p.detach().clone() for k, m in modules.items()
+                  for n, p in m.named_parameters()}
+        return {k: float(v) for k, v in metrics.items()}, grads, params
+
+    with deterministic_algorithms() as caught:
+        ops.reset_launch_counts()
+        m_k, g_k, p_k = run()
+        counts = ops.launch_counts()
+        _, g_r, _ = run()
+        before_plain = ops.launch_counts()
+        with plain_versions():
+            m_p, g_p, p_p = run()
+    nondeterministic = sorted({str(w.message).split(" does not have")[0][:80]
+                               for w in caught
+                               if "deterministic" in str(w.message)})
+    if ops.launch_counts() != before_plain:
+        fail("stage2_check: plain_versions() launched a kernel")
+    if counts != gan_launches(1):
+        fail(f"stage2_check: launch counts {counts} != {gan_launches(1)}")
+    rel = {}
+    for name in GAN_METRICS:
+        if not np.isfinite(m_k[name]):
+            fail(f"stage2_check: {name} = {m_k[name]}")
+        rel[name] = abs(m_k[name] - m_p[name]) / max(abs(m_p[name]), 1e-30)
+        if rel[name] > GAN_METRIC_TOL:
+            fail(f"stage2_check: {name} {m_k[name]} through the kernels, "
+                 f"{m_p[name]} through the plain versions")
+    top = max(g.abs().max().item() for g in g_p.values())
+    worst = {"generator": (0.0, ""), "discriminators": (0.0, "")}
+    repeat, n_small = 0.0, 0
+    for name, want in g_p.items():
+        got = g_k[name]
+        if not torch.isfinite(got).all():
+            fail(f"stage2_check: non-finite gradient of {name}")
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        part = "generator" if name.startswith("generator.") else "discriminators"
+        if err > STAGE2_GRAD_TOL[part] * scale + TRAIN_CHECK_FLOOR * top:
+            fail(f"stage2_check: gradient of {name}: max error {err:.3e} at "
+                 f"scale {scale:.3e} (largest gradient {top:.3e})")
+        if scale <= 1e-5 * top:
+            n_small += 1
+            continue
+        worst[part] = max(worst[part], (err / scale, name))
+        repeat = max(repeat, (g_r[name] - got).abs().max().item() / scale)
+    if repeat > STAGE2_REPEAT_TOL:
+        fail(f"stage2_check: the kernel path does not repeat: {repeat:.3e} of "
+             f"a gradient's scale (limit {STAGE2_REPEAT_TOL:.0e})")
+    lr = m_k["lr"]
+    param_err = max((p_k[n] - p_p[n]).abs().max().item() for n in p_p)
+    if param_err > 2 * lr * 1.001:
+        fail(f"stage2_check: updated parameters differ by {param_err:.3e} "
+             f"(limit 2 lr = {2 * lr:.3e})")
+    emit({"phase": "stage2_check", "dtype": "fp32", "tf32": False, "batch": b,
+          "segment": GAN_SEGMENT, "config": GAN_CONFIG,
+          "deterministic_algorithms": True,
+          "ops_without_deterministic_version": nondeterministic,
+          "metrics": m_k, "metrics_plain": m_p, "metric_rel_diff": rel,
+          "metric_tol": GAN_METRIC_TOL, "parameters": len(g_p),
+          "worst_generator_grad_err_of_own_scale": worst["generator"][0],
+          "worst_generator_grad": worst["generator"][1],
+          "worst_discriminator_grad_err_of_own_scale":
+              worst["discriminators"][0],
+          "worst_discriminator_grad": worst["discriminators"][1],
+          "kernel_repeat_worst_grad_diff_of_own_scale": repeat,
+          "repeat_tol_of_own_scale": STAGE2_REPEAT_TOL,
+          "grad_tol_of_own_scale": STAGE2_GRAD_TOL,
+          "grad_floor_of_largest_scale": TRAIN_CHECK_FLOOR,
+          "largest_grad_scale": top,
+          "grads_below_1e-5_of_largest": n_small,
+          "updated_param_max_diff": param_err, "updated_param_tol": 2 * lr,
+          "launches": counts})
+    del gen, mpd, mrd, modules, start, g_k, g_r, g_p, p_k, p_p
+    torch.cuda.empty_cache()
+
+
+def phase_stage2_path(trace_steps: int = 0) -> dict:
+    """Optimiser steps of the stage-2 GAN trainer at the production
+    configuration through the entry point a user calls
+    (``make_stage2_train_step``): bfloat16 generator (float32 parameters),
+    float32 discriminators, batch 16 x 16384 samples; one warm-up step, then
+    ``GAN_STEPS`` timed steps on one batch."""
+    from diffbinaural_tpu_torch import ops
+
+    h, gen, mpd, mrd = build_gan(torch.bfloat16, seed=21)
+    init_fn, step_fn = make_gan_step(h, gen, mpd, mrd)
+    state = init_fn()
+    batch = gan_batch(h, GAN_BATCH, seed=23)
+    torch.cuda.reset_peak_memory_stats()
+    rows, seconds = [], []
+    try:
+        state, _ = step_fn(state, batch)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for _ in range(GAN_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            rows.append({k: float(metrics[k]) for k in GAN_METRICS})
+    except torch.cuda.OutOfMemoryError as exc:
+        fail(f"stage2_path: batch {GAN_BATCH} does not fit the card: {exc}")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    if state.step != GAN_STEPS + 1:
+        fail(f"stage2_path: state.step {state.step}")
+    if not all(np.isfinite(v) for r in rows for v in r.values()):
+        fail(f"stage2_path: metrics {rows}")
+    if counts != gan_launches(GAN_STEPS):
+        fail(f"stage2_path: launch counts {counts} != "
+             f"{gan_launches(GAN_STEPS)}")
+    for m in (gen, mpd, mrd):
+        if not all(torch.isfinite(p).all() for p in m.parameters()):
+            fail("stage2_path: a parameter is not finite after the steps")
+    out = {"phase": "stage2_path", "generator_dtype": "bf16",
+           "discriminator_dtype": "fp32", "config": GAN_CONFIG,
+           "batch": GAN_BATCH, "segment": GAN_SEGMENT, "steps": GAN_STEPS,
+           "metrics": rows, "seconds_per_step": statistics.median(seconds),
+           "seconds_per_step_runs": seconds,
+           "sync": "synchronize + host clock around each step, median",
+           "max_memory_allocated_bytes": peak, "launches": counts,
+           "launches_per_step": {k: v // GAN_STEPS for k, v in counts.items()}}
+    emit(out)
+    if trace_steps > 0:
+        emit(trace("stage2_train_step", lambda: step_fn(state, batch),
+                   min(trace_steps, 3)))
+    del state, gen, mpd, mrd
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(cases, counts) -> dict:
     """One entry per kernel, at its heaviest shape on its path (bfloat16,
     as both paths run it)."""
@@ -934,6 +1351,10 @@ def kernels_line(cases, counts) -> dict:
         "fused_alias_free_snake": lambda c: c["shape"] == [2, 768, 3444],
         "fused_snake_conv": lambda c: c.get("k") == 7 and c.get("dilation") == 5
         and c["shape"] == [2, 768, 3444],
+        "fused_alias_free_snake_backward":
+            lambda c: c["shape"] == [GAN_BATCH, 24, 16384],
+        "fused_snake_conv_backward": lambda c: c.get("k") == 7
+        and c.get("dilation") == 5 and c["shape"] == [GAN_BATCH, 768, 256],
     }
     rows = []
     for name, (source, replaces) in SOURCES.items():
@@ -954,7 +1375,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", type=int, default=0, metavar="STEPS",
                     help="also trace STEPS UNet calls, one vocoder pass and "
-                         "up to 3 train steps with torch.profiler")
+                         "up to 3 steps of each trainer with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures on the card only")
@@ -967,12 +1388,15 @@ def main() -> None:
     cases = phase_kernels()
     phase_main_path_check()
     main_out = phase_main_path(args.trace)
-    phase_grad_refusal()
+    phase_grad_flow()
     phase_train_check()
     train_out = phase_train_path(args.trace)
+    phase_stage2_check()
+    gan_out = phase_stage2_path(args.trace)
     # each kernel's count comes from the run of its own path
     counts = {k: main_out["launches"][k] for k in SERVING_KERNELS}
     counts.update({k: train_out["launches"][k] for k in TRAINING_KERNELS})
+    counts.update({k: gan_out["launches"][k] for k in GAN_KERNELS})
     never = [k for k, v in counts.items() if v < 1]
     if never:
         fail(f"kernels never launched on their path: {never}")

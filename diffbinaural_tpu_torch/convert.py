@@ -11,11 +11,13 @@ names, so the conversion is one walk of the tree plus the layout changes:
   * flax ``GroupNorm`` scale / bias            -> ``weight`` / ``bias``
   * ``WNConv1d`` v (k, in, out)                -> v (out, in, k)
   * ``WNConvTranspose1d`` v (k, out, in)       -> v (in, out, k)
+  * ``WNConv2d`` v (kh, kw, in, out)           -> v (out, in, kh, kw)
   * everything else (g, b, alpha, beta, LayerNorm g) unchanged.
 
-``unet_tree_to_flax`` goes the other way for the UNet — parameters, or
-gradients keyed like them, back to a flax-shaped tree of numpy arrays — so
-that a train step of the port can be compared with the JAX one leaf by leaf.
+``tree_to_flax`` goes the other way for any of the port's models —
+parameters, or gradients keyed like them, back to a flax-shaped tree of
+numpy arrays — so that a train step of the port can be compared with the
+JAX one leaf by leaf.
 """
 
 from __future__ import annotations
@@ -46,7 +48,10 @@ def _leaf(name: str, value: np.ndarray):
         raise ValueError(f"unexpected kernel rank {value.ndim}")
     if name == "scale":
         return "weight", value
-    if name == "v":  # both weight-normed layouts reverse their three axes
+    if name == "v":
+        if value.ndim == 4:  # the 2-D weight-normed conv
+            return "v", value.transpose(3, 2, 0, 1)
+        # both 1-D weight-normed layouts reverse their three axes
         return "v", value.transpose(2, 1, 0)
     return name, value
 
@@ -79,8 +84,15 @@ def bigvgan_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return _state_dict(tree)
 
 
+def discriminator_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Parameters of a JAX discriminator (multi-period, multi-resolution,
+    multi-band, sub-band CQT, combined, or any sub-module) -> state_dict of
+    the port's counterpart."""
+    return _state_dict(tree)
+
+
 def _leaf_to_flax(name: str, value: np.ndarray):
-    """Inverse of :func:`_leaf` for the UNet's leaves."""
+    """Inverse of :func:`_leaf`."""
     if name == "weight":
         if value.ndim == 2:
             return "kernel", value.T
@@ -89,14 +101,19 @@ def _leaf_to_flax(name: str, value: np.ndarray):
         if value.ndim == 1:
             return "scale", value
         raise ValueError(f"unexpected weight rank {value.ndim}")
+    if name == "v":
+        if value.ndim == 4:
+            return "v", value.transpose(2, 3, 1, 0)
+        return "v", value.transpose(2, 1, 0)
     return name, value
 
 
-def unet_tree_to_flax(named: Mapping[str, torch.Tensor]) -> Dict:
-    """``state_dict``-shaped tensors of the port's UNet (its parameters, or
-    their gradients under the same names) -> the flax-shaped nested dict of
-    numpy arrays, with the layout changes of :func:`unet_params_from_flax`
-    undone.  The result has no top-level ``params`` level."""
+def tree_to_flax(named: Mapping[str, torch.Tensor]) -> Dict:
+    """``state_dict``-shaped tensors of one of the port's models (its
+    parameters, or their gradients under the same names) -> the flax-shaped
+    nested dict of numpy arrays, with the layout changes of the
+    ``*_params_from_flax`` functions undone.  The result has no top-level
+    ``params`` level."""
     tree: Dict = {}
     for key, tensor in named.items():
         *path, leaf = key.split(".")

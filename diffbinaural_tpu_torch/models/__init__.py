@@ -2,7 +2,9 @@
 
 ``build_unet`` / ``build_vocoder`` return a module in eval mode with random
 weights drawn from ``seed`` (the distributions of the JAX package's
-initialisers), on the card unless ``device="cpu"`` is passed.
+initialisers), on the card unless ``device="cpu"`` is passed;
+``build_discriminators`` returns the config-driven pair of stage-2
+discriminators the same way.
 """
 
 from __future__ import annotations
@@ -14,6 +16,14 @@ import torch.nn as nn
 
 from ..core.config import UnetConfig, VocoderConfig
 from ..core.device import resolve_device
+from .discriminators import (
+    CombinedDiscriminator,
+    MultiBandDiscriminator,
+    MultiPeriodDiscriminator,
+    MultiResolutionDiscriminator,
+    MultiScaleSubbandCQTDiscriminator,
+    init_discriminator,
+)
 from .bigvgan import (
     BigVGAN,
     BinauralBigVGAN,
@@ -75,7 +85,43 @@ def build_vocoder(config: VocoderConfig = VocoderConfig(),
     return init_parameters(BigVGAN(config, dtype=dtype), seed).to(device).eval()
 
 
+def build_discriminators(h, dtype=torch.float32, seed: int = 0, device=None):
+    """The config-driven pair ``(mpd, mrd)`` of the stage-2 GAN (the JAX
+    package's ``cli/gan_common.py:build_discriminators``): the
+    multi-period discriminator over ``mpd_reshapes``, and as ``mrd`` the
+    sub-band CQT discriminator when ``use_cqtd_instead_of_mrd`` (the
+    production config), else the multi-band one when
+    ``use_mbd_instead_of_mrd``, else the multi-resolution one.  ``dtype``
+    is the convolutions' compute type only (parameters float32; the
+    spectral frontends and the GAN losses stay float32)."""
+    device = resolve_device(device)
+    mpd = MultiPeriodDiscriminator(
+        periods=tuple(h.get("mpd_reshapes", [2, 3, 5, 7, 11])),
+        channel_mult=h.get("discriminator_channel_mult", 1), dtype=dtype)
+    if h.get("use_cqtd_instead_of_mrd", False):
+        mrd = MultiScaleSubbandCQTDiscriminator(
+            sampling_rate=h["sampling_rate"],
+            hop_lengths=tuple(h.get("cqtd_hop_lengths", [512, 256, 256])),
+            n_octaves=tuple(h.get("cqtd_n_octaves", [9, 9, 9])),
+            bins_per_octaves=tuple(h.get("cqtd_bins_per_octaves",
+                                         [24, 36, 48])),
+            filters=h.get("cqtd_filters", 32), dtype=dtype)
+    elif h.get("use_mbd_instead_of_mrd", False):
+        mrd = MultiBandDiscriminator(
+            fft_sizes=tuple(h.get("mbd_fft_sizes", [2048, 1024, 512])),
+            dtype=dtype)
+    else:
+        mrd = MultiResolutionDiscriminator(
+            resolutions=tuple(tuple(r) for r in h["resolutions"]),
+            channel_mult=h.get("discriminator_channel_mult", 1), dtype=dtype)
+    return (init_discriminator(mpd, seed).to(device),
+            init_discriminator(mrd, seed + 1).to(device))
+
+
 __all__ = [
-    "AudioVisualModel", "BigVGAN", "BinauralBigVGAN", "Unet", "build_unet",
-    "build_vocoder", "init_parameters", "remove_weight_norm",
+    "AudioVisualModel", "BigVGAN", "BinauralBigVGAN", "CombinedDiscriminator",
+    "MultiBandDiscriminator", "MultiPeriodDiscriminator",
+    "MultiResolutionDiscriminator", "MultiScaleSubbandCQTDiscriminator",
+    "Unet", "build_discriminators", "build_unet", "build_vocoder",
+    "init_discriminator", "init_parameters", "remove_weight_norm",
 ]

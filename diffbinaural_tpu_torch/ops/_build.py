@@ -51,6 +51,13 @@ KERNELS = {
         # x, alpha, inv_beta, out, B, C, T, is_bf16, stream
         {"afa_snake_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
     ),
+    "alias_free_act_bwd": (
+        "alias_free_act_bwd.cu",
+        # x, dz, alpha, inv_beta, dx, da_part, db_part, B, C, T, n_tiles,
+        # is_bf16, stream
+        {"afa_snake_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _P]},
+    ),
     "snake_conv": (
         "snake_conv.cu",
         # x, alpha, inv_beta, w(k,Cin,Cout), bias, out, B, C, T, k, dilation,

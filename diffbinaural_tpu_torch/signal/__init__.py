@@ -11,5 +11,7 @@ from .stft import (
     mel_filterbank,
     mel_spectrogram,
     num_frames,
+    stft_complex,
     stft_magnitude,
 )
+from .cqt import cqt, cqt_kernels

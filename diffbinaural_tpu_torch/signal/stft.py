@@ -4,13 +4,13 @@ default), periodic Hann window, reflect pad of (n_fft - hop) / 2, a
 ``center=False`` STFT, magnitude sqrt(re^2 + im^2 + 1e-9), then
 ln(clamp(x, 1e-5)).  Always float32.
 
+Also ``stft_complex``, the centered complex STFT of the discriminators and
+the multi-scale mel loss (``torch.stft(center=True)`` semantics).
+
 The filterbank and the window are computed in numpy float64 and cached; the
 framing is a strided view (``Tensor.unfold``), the transform
 ``torch.fft.rfft`` and the mel projection one matmul, on whatever device the
 signal lies on.
-
-Not ported yet: ``stft_complex`` (the discriminators' and the multi-scale
-mel loss's transform) and the CQT.
 """
 
 from __future__ import annotations
@@ -95,14 +95,37 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int,
     y = y.float()
     if pad:
         padding = (n_fft - hop_size) // 2
-        lead = y.shape[:-1]
-        # F.pad's reflect mode wants a (batch, channel, T) input
-        y = F.pad(y.reshape(1, -1, y.shape[-1]), (padding, padding),
-                  mode="reflect").reshape(*lead, -1)
+        y = _pad_last(y, padding, padding, "reflect")
     frames = _frame(y, n_fft, hop_size) * window
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
     mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + eps)
     return mag.transpose(-1, -2)
+
+
+def _pad_last(y: torch.Tensor, left: int, right: int, mode: str):
+    """Pad the last axis of (..., T); ``F.pad``'s reflect and replicate
+    modes want a (batch, channel, T) input."""
+    lead = y.shape[:-1]
+    return F.pad(y.reshape(1, -1, y.shape[-1]), (left, right),
+                 mode=mode).reshape(*lead, -1)
+
+
+def stft_complex(y: torch.Tensor, n_fft: int, hop_size: int,
+                 win_size: Optional[int] = None, *, center: bool = True,
+                 window: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Complex STFT.  y: (..., T) -> complex64 (..., 1 + n_fft // 2,
+    n_frames), n_frames = 1 + T // hop when ``center`` (a reflect pad of
+    n_fft // 2 on each side).  The window (periodic Hann of ``win_size``
+    unless one is given) must have n_fft samples."""
+    if win_size is None:
+        win_size = n_fft
+    win = window if window is not None else hann_window(win_size)
+    win = torch.from_numpy(np.asarray(win, dtype=np.float32)).to(y.device)
+    y = y.float()
+    if center:
+        y = _pad_last(y, n_fft // 2, n_fft // 2, "reflect")
+    frames = _frame(y, n_fft, hop_size) * win
+    return torch.fft.rfft(frames, n=n_fft, dim=-1).transpose(-1, -2)
 
 
 def dynamic_range_compression(x, C: float = 1.0, clip_val: float = 1e-5):

@@ -41,8 +41,11 @@ def _modules():
 def test_every_module_imports_without_jax():
     names = _modules()
     assert len(names) >= 20
-    for sub in ("train", "train.stage1", "train.stabilizer", "data",
-                "data.audio_io", "signal.stft"):
+    for sub in ("train", "train.stage1", "train.stage2", "train.stabilizer",
+                "data", "data.audio_io", "signal.stft", "signal.cqt",
+                "losses", "losses.gan", "losses.multiscale_mel",
+                "losses.silence", "losses.binaural_enhanced",
+                "models.discriminators"):
         assert f"diffbinaural_tpu_torch.{sub}" in names
     code = (
         "import importlib, sys\n"
@@ -100,14 +103,17 @@ def _no_card():
 
 @pytest.mark.parametrize("entry", ["build_unet", "build_vocoder", "pipeline",
                                    "diffusion", "sampler", "vocoder",
-                                   "train_step"])
+                                   "train_step", "build_discriminators",
+                                   "stage2_train_step"])
 def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
     _no_card()
     from diffbinaural_tpu_torch.diffusion import GaussianDiffusion
     from diffbinaural_tpu_torch.infer import (BinauralPipeline, Stage1Sampler,
                                               Vocoder)
-    from diffbinaural_tpu_torch.models import build_unet, build_vocoder
-    from diffbinaural_tpu_torch.train import make_stage1_train_step
+    from diffbinaural_tpu_torch.models import (build_discriminators,
+                                               build_unet, build_vocoder)
+    from diffbinaural_tpu_torch.train import (make_stage1_train_step,
+                                              make_stage2_train_step)
 
     calls = {
         "build_unet": lambda: build_unet(UnetConfig(dim=16)),
@@ -117,6 +123,11 @@ def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
         "sampler": lambda: Stage1Sampler(None),
         "vocoder": lambda: Vocoder(),
         "train_step": lambda: make_stage1_train_step(torch.nn.Linear(2, 2)),
+        "build_discriminators": lambda: build_discriminators(
+            {"sampling_rate": 22050, "use_cqtd_instead_of_mrd": True}),
+        "stage2_train_step": lambda: make_stage2_train_step(
+            *(torch.nn.Linear(2, 2) for _ in range(3)), mel_fn=None,
+            multiscale_mel_loss=lambda y, yh: 0.0),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -144,12 +155,20 @@ def test_wrappers_on_cpu_tensors_leave_launch_counts_at_zero():
     x = torch.randn(1, 128, 24)
     a = torch.zeros(128)
     ops.fused_alias_free_snake(x, a, a)
-    ops.fused_snake_conv(x, a, a, torch.randn(128, 128, 3) * 0.02, a, 1)
+    w = torch.randn(128, 128, 3) * 0.02
+    ops.fused_snake_conv(x, a, a, w, a, 1)
     ops.flash_sdpa_backward(q, q, q, *ops.flash_sdpa_with_lse(q, q, q, 0.2), q,
                             0.2)
+    ops.fused_alias_free_snake_backward(x, x, a, a)
+    ops.fused_snake_conv_backward(x, x, a, a, w, a, 1)
+    # the autograd Functions on CPU tensors: forward and backward
+    leaves = [t.clone().requires_grad_() for t in (x, a, w)]
+    ops.fused_alias_free_snake(leaves[0], leaves[1], a).sum().backward()
+    ops.fused_snake_conv(leaves[0], leaves[1], a, leaves[2], a).sum().backward()
     assert ops.launch_counts() == {
         "flash_sdpa": 0, "flash_sdpa_with_lse": 0, "flash_sdpa_backward": 0,
-        "fused_alias_free_snake": 0, "fused_snake_conv": 0}
+        "fused_alias_free_snake": 0, "fused_alias_free_snake_backward": 0,
+        "fused_snake_conv": 0, "fused_snake_conv_backward": 0}
 
 
 def test_wrappers_never_take_the_plain_version_for_another_device():
@@ -169,3 +188,8 @@ def test_wrappers_never_take_the_plain_version_for_another_device():
         ops.fused_alias_free_snake(x, a, a)
     with pytest.raises(ValueError, match="unsupported device"):
         ops.fused_snake_conv(x, a, a, torch.empty(128, 128, 3, device="meta"), a)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.fused_alias_free_snake_backward(x, x, a, a)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.fused_snake_conv_backward(
+            x, x, a, a, torch.empty(128, 128, 3, device="meta"), a)

@@ -16,7 +16,7 @@ from diffbinaural_tpu.models import AudioVisualModel as JaxAudioVisualModel
 from diffbinaural_tpu.train import TrainingStabilizer as JaxStabilizer
 from diffbinaural_tpu.train import make_stage1_train_step as jax_make_step
 from diffbinaural_tpu_torch.convert import (unet_params_from_flax,
-                                            unet_tree_to_flax)
+                                            tree_to_flax)
 from diffbinaural_tpu_torch.core.config import UnetConfig
 from diffbinaural_tpu_torch.diffusion import GaussianDiffusion
 from diffbinaural_tpu_torch.models import build_unet, unet
@@ -246,7 +246,7 @@ def test_one_train_step_matches_jax(world):
     # the gradients were clipped in place: undo the clip's factor
     norm = float(metrics["grad_norm"])
     assert norm > 1.0
-    got = _flat(unet_tree_to_flax(
+    got = _flat(tree_to_flax(
         {k: p.grad * norm for k, p in state.unet.named_parameters()}))
     want = _flat(world["grads"]["params"])
     assert set(got) == set(want) and len(got) > 300
@@ -257,7 +257,7 @@ def test_one_train_step_matches_jax(world):
         nonzero += bool(np.abs(want[name]).max() > 1e-4)
     assert nonzero > 250
 
-    new = _flat(unet_tree_to_flax(dict(state.unet.named_parameters())))
+    new = _flat(tree_to_flax(dict(state.unet.named_parameters())))
     want_new = _flat(world["new_params"]["params"])
     moved = 0
     for name in sorted(want_new):
