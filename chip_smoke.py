@@ -34,6 +34,13 @@ time, the device's busy share and the ten kernels with the most device time.
 
 Float32 comparisons run with TF32 switched off for both matmuls and cuDNN
 convolutions, so the plain versions are true float32 references.
+
+Kernel times (``ms``) are per call over back-to-back calls between two CUDA
+events.  The anti-aliased activation (K2) and the fused snake->conv (K3) are
+faster than their Python wrappers' host side, so their calls are replayed
+from a CUDA graph (``graph_ms``); their case lines also give the kernel alone
+from ``torch.profiler`` (``kernel_ms``), the eager calls (``eager_ms``) and
+the host microseconds per call.
 """
 
 from __future__ import annotations
@@ -135,6 +142,55 @@ def time_ms(fn, warmup: int = 2, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Per-call time of ``calls`` back-to-back calls captured in one CUDA
+    graph and replayed between two CUDA events: the device time of
+    everything ``fn`` launches (parameter preparation included) with no
+    host side in between — for wrappers whose host side (~0.1 ms in Python)
+    outlasts their kernels, where back-to-back eager calls time the host."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a side stream, as capture asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / calls
+
+
+def kernel_ms(fn, kernel: str, calls: int = 20) -> float:
+    """Device time per call of the kernels whose name contains ``kernel``,
+    from ``torch.profiler`` over ``calls`` calls: the kernel alone, without
+    the wrapper's parameter preparation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    if total <= 0:
+        fail(f"kernel_ms: no device time for {kernel}")
+    return total / 1e3 / calls
 
 
 def time_run_ms(fn, calls: int, repeats: int = 3) -> float:
@@ -461,14 +517,17 @@ def check_k2(gen, results):
     """fused_alias_free_snake vs its plain version, all samples.  float32:
     1e-5 (same float32 arithmetic, other summation order and another sine);
     bfloat16: both round one float32 result to bfloat16 — 8e-3 of the
-    output's scale (two bfloat16 steps).  The serving shapes are timed; the
-    stage-2 shapes (T = 256 is shorter than one tile) and a ragged clip are
-    compared."""
+    output's scale (two bfloat16 steps).  The serving and stage-2 shapes are
+    timed in bfloat16 and float32 (``ms``: graph-replayed calls, see
+    ``graph_ms``; ``eager_ms``: back-to-back eager calls, the host's pace
+    when it is the slower; ``kernel_ms``: the kernel alone); a ragged clip
+    and short rows are compared."""
     from diffbinaural_tpu_torch.ops import (alias_free_snake_plain,
                                             fused_alias_free_snake)
 
     shapes = ([(2, c, t) for c, t in K2_STAGES]
-              + [(GAN_BATCH, c, t) for c, t in GAN_STAGES] + [(2, 48, 1001)])
+              + [(GAN_BATCH, c, t) for c, t in GAN_STAGES]
+              + [(2, 48, 1001), (3, 5, 7), (2, 3, 1)])
     for b, c, t in shapes:
         for dtype, tol, rel in ((torch.float32, 1e-5, False),
                                 (torch.bfloat16, 8e-3, True)):
@@ -482,9 +541,13 @@ def check_k2(gen, results):
             case = {"kernel": "fused_alias_free_snake", "shape": [b, c, t],
                     "dtype": dt_name(dtype), "max_err": err, "tol": tol,
                     "tol_relative_to_output_scale": rel}
-            if (c, t) in K2_STAGES:
-                case["ms"] = time_ms(
-                    lambda: fused_alias_free_snake(x, alpha, beta, True))
+            if (c, t) in K2_STAGES or (c, t) in GAN_STAGES:
+                def run():
+                    return fused_alias_free_snake(x, alpha, beta, True)
+                case["ms"] = graph_ms(run)
+                case["eager_ms"] = time_ms(run)
+                case["kernel_ms"] = kernel_ms(run, "afa_snake_kernel")
+                case["host_us_per_call"] = _host_us_per_call(run)
                 case["plain_ms"] = time_ms(
                     lambda: alias_free_snake_plain(x, alpha, beta, True))
                 case["library_ms"] = None
@@ -495,44 +558,83 @@ def check_k2(gen, results):
             results.append(case)
 
 
+def _k3_case(gen, results, b, c, t, k, d, dtype, tol, timed):
+    """One fused_snake_conv case against its plain version; timed cases
+    add ``ms`` (graph-replayed calls: the kernel, the weight's relayout
+    and the parameters' preparation), ``eager_ms``, ``kernel_ms``,
+    ``host_us_per_call`` and ``unfused_ms``, the route the fusion replaces
+    timed the same way: the port's K2 then ``F.conv1d`` in x's type."""
+    from diffbinaural_tpu_torch.ops import (fused_alias_free_snake,
+                                            fused_snake_conv, snake_conv_plain)
+
+    x = rand(gen, (b, c, t), dtype)
+    alpha = rand(gen, (c,), torch.float32, 0.3)
+    beta = rand(gen, (c,), torch.float32, 0.3)
+    w = rand(gen, (c, c, k), dtype, 0.02)
+    bias = rand(gen, (c,), torch.float32, 0.1)
+    got = fused_snake_conv(x, alpha, beta, w, bias, d, True)
+    want = snake_conv_plain(x, alpha, beta, w, bias, d, True)
+    err = _compare("fused_snake_conv", (b, c, t, k, d, dt_name(dtype)),
+                   got, want, tol, relative=True)
+    case = {"kernel": "fused_snake_conv", "shape": [b, c, t], "k": k,
+            "dilation": d, "dtype": dt_name(dtype), "max_err": err,
+            "tol": tol, "tol_relative_to_output_scale": True,
+            "err_of_scale": err / want.float().abs().max().item()}
+    del got, want
+    if timed:
+        pad = (k - 1) // 2 * d
+        bias_x = bias.to(dtype)
+
+        def run():
+            return fused_snake_conv(x, alpha, beta, w, bias, d, True)
+
+        def unfused():
+            z = fused_alias_free_snake(x, alpha, beta, True)
+            return F.conv1d(z, w, bias_x, padding=pad, dilation=d)
+
+        case["ms"] = graph_ms(run)
+        case["unfused_ms"] = graph_ms(unfused)
+        case["eager_ms"] = time_ms(run)
+        case["unfused_eager_ms"] = time_ms(unfused)
+        case["kernel_ms"] = kernel_ms(run, "snake_conv")
+        case["host_us_per_call"] = _host_us_per_call(run)
+        case["plain_ms"] = time_ms(
+            lambda: snake_conv_plain(x, alpha, beta, w, bias, d, True))
+        case["library_ms"] = None
+        flops = 2.0 * b * t * k * c * c + K2_OPS_PER_SAMPLE * b * c * t
+        nbytes = (2.0 * b * c * t + k * c * c) * x.element_size() + 12 * c
+        _bound(case, flops, nbytes, dt_name(dtype))
+    results.append(case)
+
+
+# K3 at the eligible shapes that the gate (C >= 768, k <= 7) leaves to the
+# unfused route: (C, T at batch 2, k), each at d = 1 and 5, bfloat16
+K3_UNGATED = [(384, 13776, 3), (384, 13776, 7), (384, 13776, 11),
+              (768, 3444, 11)]
+
+
 def check_k3(gen, results):
     """fused_snake_conv vs its plain version (plain activation +
     ``F.conv1d``).  float32: 2e-4 of the output's scale (sums of 768*k terms
-    in another order); bfloat16: 2e-2 of the output's scale (the plain
-    version rounds the activation to bfloat16 before the convolution, the
-    kernel keeps it in float32).  The serving shapes are timed; the stage-2
-    shapes and a 40-sample clip are compared."""
-    from diffbinaural_tpu_torch.ops import fused_snake_conv, snake_conv_plain
-
+    in another order); bfloat16: 2e-2 of the output's scale (both round the
+    activation to bfloat16; the products' sums in another order).  The
+    serving and stage-2 shapes are timed in both types (bfloat16 against
+    the unfused route too), a 40-sample clip and a ragged T are compared,
+    and the ungated shapes are compared and timed in bfloat16."""
     c = 768
     cases = [(b, t, k, d) for b, t in ((2, 3444), (GAN_BATCH, 256))
              for k in (3, 7) for d in (1, 3, 5)]
-    cases.append((1, 40, 7, 5))  # one tile that crosses both clip edges
     for b, t, k, d in cases:
+        _k3_case(gen, results, b, c, t, k, d, torch.float32, 2e-4, True)
+        _k3_case(gen, results, b, c, t, k, d, torch.bfloat16, 2e-2, True)
+    # one tile that crosses both clip edges; a ragged T of several tiles
+    for b, t, k, d in ((1, 40, 7, 5), (2, 1001, 3, 3)):
         for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
-            x = rand(gen, (b, c, t), dtype)
-            alpha = rand(gen, (c,), torch.float32, 0.3)
-            beta = rand(gen, (c,), torch.float32, 0.3)
-            w = rand(gen, (c, c, k), dtype, 0.02)
-            bias = rand(gen, (c,), torch.float32, 0.1)
-            got = fused_snake_conv(x, alpha, beta, w, bias, d, True)
-            want = snake_conv_plain(x, alpha, beta, w, bias, d, True)
-            err = _compare("fused_snake_conv", (b, c, t, k, d, dt_name(dtype)),
-                           got, want, tol, relative=True)
-            case = {"kernel": "fused_snake_conv", "shape": [b, c, t], "k": k,
-                    "dilation": d, "dtype": dt_name(dtype), "max_err": err,
-                    "tol": tol, "tol_relative_to_output_scale": True}
-            if t == 3444:
-                case["ms"] = time_ms(
-                    lambda: fused_snake_conv(x, alpha, beta, w, bias, d, True))
-                case["plain_ms"] = time_ms(
-                    lambda: snake_conv_plain(x, alpha, beta, w, bias, d, True))
-                case["library_ms"] = None
-                flops = 2.0 * b * t * k * c * c + K2_OPS_PER_SAMPLE * b * c * t
-                nbytes = (2.0 * b * c * t + k * c * c) * x.element_size() + 12 * c
-                _bound(case, flops, nbytes, dt_name(dtype))
-            del got, want
-            results.append(case)
+            _k3_case(gen, results, b, c, t, k, d, dtype, tol, False)
+    for cc, t, k in K3_UNGATED:
+        for d in (1, 5):
+            _k3_case(gen, results, 2, cc, t, k, d, torch.bfloat16, 2e-2, True)
+        torch.cuda.empty_cache()
 
 
 # per sample: two up-FIR phases recomputed (12 each), two adjoint down-FIR

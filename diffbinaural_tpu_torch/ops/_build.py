@@ -63,8 +63,9 @@ KERNELS = {
     ),
     "snake_conv": (
         "snake_conv.cu",
-        # x, alpha, inv_beta, w(k,Cin,Cout), bias, out, B, C, T, k, dilation,
-        # is_bf16, stream
+        # x, alpha, inv_beta, w (float32: (k, Cin, Cout); bfloat16: the
+        # blocked layout of snake_conv.py:blocked_weight), bias, out, B, C,
+        # T, k, dilation, is_bf16, stream
         {"snake_conv_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _P]},
     ),

@@ -1,5 +1,5 @@
 // Shared device code of the alias-free snake activation (used by
-// alias_free_act.cu and snake_conv.cu).
+// alias_free_act.cu, alias_free_act_bwd.cu and snake_conv.cu).
 //
 //   y_e[t] = 2 * sum_{i=0..5} h[11-2i] * x[t-3+i]        (up-FIR, even phase)
 //   y_o[t] = 2 * sum_{i=0..5} h[10-2i] * x[t-2+i]        (up-FIR, odd phase)
@@ -9,11 +9,15 @@
 // Edge semantics are those of the unfused composition (replicate-pad x,
 // up-FIR, snake, replicate-pad the 2x-rate signal, down-FIR): the index of x
 // is clamped to [0, T-1] AND the lattice index n is clamped to [0, 2T-1].
-// All arithmetic is float32 with the exact sinf.
+// All arithmetic is float32.  The shared-memory helpers below (afa_stage_x,
+// afa_mid, afa_down) use the exact sinf; the register-blocked forward at
+// the end of the file (K2 and the bfloat16 K3's activation) uses afa_sin2,
+// a range-reduced hardware sine.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "afa_taps.h"  // AFA_H0 .. AFA_H11, generated at build time
 
@@ -64,29 +68,6 @@ __device__ __forceinline__ float afa_mid(const float* xs, int g0, int xs_width,
   return y + inv_beta * (s * s);
 }
 
-// Fill the two lattice buffers for outputs t in [t0, t0 + width):
-//   me[q] = mid[2*(t0 - 2 + q)],  mo[q] = mid[2*(t0 - 3 + q) + 1],
-// q in [0, width + 5).  xs must hold x[clamp(t0 - 5 + p)], p < width + 10.
-__device__ __forceinline__ void afa_fill_lattice(const float* xs, int t0,
-                                                 int width, int T_len,
-                                                 float alpha, float inv_beta,
-                                                 float* me, float* mo, int tid,
-                                                 int nthreads) {
-  const int g0 = t0 - 5;
-  const int xs_width = width + 10;
-  const int nq = width + 5;
-  for (int i = tid; i < 2 * nq; i += nthreads) {
-    if (i < nq) {
-      me[i] = afa_mid(xs, g0, xs_width, 2 * (t0 - 2 + i), T_len, alpha,
-                      inv_beta);
-    } else {
-      const int q = i - nq;
-      mo[q] = afa_mid(xs, g0, xs_width, 2 * (t0 - 3 + q) + 1, T_len, alpha,
-                      inv_beta);
-    }
-  }
-}
-
 // z at local output index i (t = t0 + i) from the lattice buffers.
 __device__ __forceinline__ float afa_down(const float* me, const float* mo,
                                           int i) {
@@ -95,4 +76,83 @@ __device__ __forceinline__ float afa_down(const float* me, const float* mo,
   return AFA_H1 * e[0] + AFA_H0 * o[0] + AFA_H3 * e[1] + AFA_H2 * o[1] +
          AFA_H5 * e[2] + AFA_H4 * o[2] + AFA_H7 * e[3] + AFA_H6 * o[3] +
          AFA_H9 * e[4] + AFA_H8 * o[4] + AFA_H11 * e[5] + AFA_H10 * o[5];
+}
+
+// ------------------------------------------------ register-blocked forward
+
+// sin^2(u).  sin^2 has period pi, so u is reduced by the nearest multiple of
+// pi (two-constant Cody-Waite) to [-pi/2, pi/2], where the hardware sine's
+// absolute error is below 2^-20.9; the reduction itself is exact to ~1e-7 of
+// u's last bit for |u| < 1e4.  An absolute error of 1e-6 in mid moves z by
+// less than that (the down-FIR's taps sum to 1).
+__device__ __forceinline__ float afa_sin2(float u) {
+  const float k = rintf(u * 0.318309886183790672f);
+  float r = fmaf(-k, 3.14159274101257324f, u);   // float(pi)
+  r = fmaf(-k, -8.74227766e-08f, r);             // pi - float(pi)
+  const float s = __sinf(r);
+  return s * s;
+}
+
+// mid from the up-FIR of six consecutive x values (even phase: p[i] =
+// x[m-3+i] for lattice point 2m; odd phase: p[i] = x[m-2+i] for 2m+1).
+__device__ __forceinline__ float afa_snake(float y, float a, float ib) {
+  y *= 2.0f;
+  return fmaf(ib, afa_sin2(a * y), y);
+}
+__device__ __forceinline__ float afa_mid_even(const float* p, float a,
+                                              float ib) {
+  return afa_snake(AFA_H11 * p[0] + AFA_H9 * p[1] + AFA_H7 * p[2] +
+                       AFA_H5 * p[3] + AFA_H3 * p[4] + AFA_H1 * p[5],
+                   a, ib);
+}
+__device__ __forceinline__ float afa_mid_odd(const float* p, float a,
+                                             float ib) {
+  return afa_snake(AFA_H10 * p[0] + AFA_H8 * p[1] + AFA_H6 * p[2] +
+                       AFA_H4 * p[3] + AFA_H2 * p[4] + AFA_H0 * p[5],
+                   a, ib);
+}
+
+// mid at lattice index n of a row read straight from device memory; CLAMP
+// clamps n to [0, 2T-1] and the x index to [0, T-1] (edge tiles), without
+// it every index must lie inside the row (interior tiles).
+template <bool CLAMP, typename T>
+__device__ __forceinline__ float afa_mid_row(const T* __restrict__ row,
+                                             int T_len, int n, float a,
+                                             float ib) {
+  if (CLAMP) n = afa_clamp(n, 0, 2 * T_len - 1);
+  const int odd = n & 1;
+  const int base = (n >> 1) - 3 + odd;
+  float p[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const int t = CLAMP ? afa_clamp(base + i, 0, T_len - 1) : base + i;
+    p[i] = afa_to_float(row[t]);
+  }
+  return odd ? afa_mid_odd(p, a, ib) : afa_mid_even(p, a, ib);
+}
+
+// R consecutive outputs z[t0 .. t0+R) of one row from the x window
+// xw[p] = x[clamp(t0 - 5 + p)], p < R + 10, all in registers: the lattice
+// me[q] = mid[2(t0-2+q)], mo[q] = mid[2(t0-3+q)+1] (q < R + 5; the five
+// extra points per phase are the halo, recomputed by the neighbouring run),
+// then the down-FIR.  EDGE applies the lattice clamp: a point below 0 takes
+// mid0 = mid[0] and one above 2T-1 takes mid_last = mid[2T-1] (the window's
+// x clamp already holds for the rest).
+template <int R, bool EDGE>
+__device__ __forceinline__ void afa_run(const float* xw, int t0, int T_len,
+                                        float a, float ib, float mid0,
+                                        float mid_last, float* z) {
+  float me[R + 5], mo[R + 5];
+#pragma unroll
+  for (int q = 0; q < R + 5; ++q) {
+    me[q] = afa_mid_even(xw + q, a, ib);
+    mo[q] = afa_mid_odd(xw + q, a, ib);
+    if (EDGE) {
+      const int m_e = t0 - 2 + q, m_o = t0 - 3 + q;
+      me[q] = m_e < 0 ? mid0 : (m_e >= T_len ? mid_last : me[q]);
+      mo[q] = m_o < 0 ? mid0 : (m_o >= T_len ? mid_last : mo[q]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) z[i] = afa_down(me, mo, i);
 }

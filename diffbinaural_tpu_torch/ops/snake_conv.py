@@ -19,13 +19,16 @@ outside it.
 
 On this card the forward is bound by operations (2*B*T*k*C^2 FLOP); the
 point of the fusion is that the activated tensor never goes to device
-memory: each block activates its time tile (plus the convolution's halo)
-for 16 input channels at a time into shared memory and accumulates the k
-shifted products from there.  Rows outside the clip are zeroed before the
-taps, so the convolution's zero padding is exact.  Edge semantics of the
-activation are those of ``ops.alias_free_act`` (the unfused composition's,
-on every sample).  This first version computes on the CUDA cores in
-float32.
+memory.  In bfloat16 the kernel is an implicit GEMM on the tensor cores
+(``wgmma``): a block activates its 64 time steps plus the convolution's
+halo over all input channels once into shared memory, rounded to bfloat16
+as the plain version rounds it, and multiplies the k shifted row windows of
+it by the weight, streamed in the layout of :func:`blocked_weight`.  In
+float32 it runs on the CUDA cores (tensor-core TF32 would not meet the
+float32 checks).  Rows outside the clip are zeroed before the taps, so the
+convolution's zero padding is exact.  Edge semantics of the activation are
+those of ``ops.alias_free_act`` (the unfused composition's, on every
+sample).
 """
 
 from __future__ import annotations
@@ -35,11 +38,11 @@ import torch.nn.functional as F
 
 from . import _build
 from .alias_free_act import (_check_device, _effective, _exp_if, _forward
-                             as _act_forward, _needs_grad,
+                             as _act_forward, _needs_grad, aligned,
                              alias_free_snake_plain, check_act_inputs,
                              fused_alias_free_snake_backward)
 
-LANE = 128  # output channels per block of the kernel
+LANE = 128  # channel counts must be a multiple of this
 
 
 def snake_conv_eligible(c_in: int, c_out: int, kernel_size: int,
@@ -88,17 +91,45 @@ def _check_conv(name, x, alpha, beta, weight, bias, dilation) -> int:
     return dilation
 
 
+def co_block(c: int, b: int = 0, t: int = 0, sms: int = 0) -> int:
+    """Output channels per block of the bfloat16 kernel on (b, c, t) and a
+    card of ``sms`` SMs (``csrc/snake_conv.cu:sch_co_block``): all 768 at
+    C = 768, so that no output-channel tile recomputes the activation, while
+    the grid of 64-step tiles fills at least half the SMs; else 384."""
+    tiles = b * -(-t // 64)
+    if c % 768 == 0 and 2 * tiles * (c // 768) >= sms:
+        return 768
+    return 384 if c % 384 == 0 else LANE
+
+
+def blocked_weight(weight, dtype=torch.bfloat16, blk=None):
+    """The (C_out, C_in, k) kernel in the bfloat16 kernel's layout: one
+    contiguous tile per (output-channel block, tap, 16 input channels) — the
+    kernel's steps in order — each in wgmma's K-major core-matrix order:
+    (C/CO_BLK, k, C/16, CO_BLK/8, 2, 8, 8) over (block, tap, chunk, 8-row
+    group, k-half, row, column); CO_BLK = ``blk`` or :func:`co_block`."""
+    c_out, c_in, k = weight.shape
+    blk = blk or co_block(c_out)
+    w = weight.to(dtype).reshape(c_out // blk, blk // 8, 8, c_in // 16, 2, 8, k)
+    return w.permute(0, 6, 3, 1, 4, 2, 5).contiguous()
+
+
 def _forward(x, alpha, beta, weight, bias, dilation: int, logscale: bool):
     """The forward without autograd: the plain version on the CPU, K3 on a
-    card."""
+    card (the tensor-core kernel for bfloat16, the CUDA-core kernel for
+    float32)."""
     if x.device.type == "cpu":
         return snake_conv_plain(x, alpha, beta, weight, bias, dilation, logscale)
     a, inv_b = _effective(alpha, beta, logscale)
-    # the kernel reads the weight tap-major, (k, C_in, C_out), in x's type
-    w = weight.to(x.dtype).permute(2, 1, 0).contiguous()
+    b, c, t = x.shape
+    if x.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        w = blocked_weight(weight, blk=co_block(c, b, t, sms))
+    else:  # tap-major, (k, C_in, C_out)
+        w = weight.float().permute(2, 1, 0).contiguous()
+    x = aligned(x)
     bias32 = bias.float().contiguous()
     out = torch.empty_like(x)
-    b, c, t = x.shape
     k = weight.shape[2]
     with torch.cuda.device(x.device):
         lib = _build.load("snake_conv")

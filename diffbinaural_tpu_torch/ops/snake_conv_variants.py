@@ -1,0 +1,216 @@
+"""Variants of the vocoder's forward kernels, built side by side and timed
+in turns on one card: the measurement behind the bfloat16 K3's split of
+time between the activation and the product, its ring depth and its
+output-channel block, and behind K2's run length.
+
+Each variant is the shipped source with a few lines replaced: K3 without
+its activation or without its product (each leaves the other's time), with
+two or three ring stages, or with two output-channel groups of 384 at every
+grid; K2 with runs of 8 or 32 outputs per thread, or 128-thread blocks.
+Every line a variant replaces must still be in the sources, so a variant
+that no longer applies fails before anything is built
+(``tests/test_torch_snake_conv_tiling.py`` checks that on the CPU).  On a
+machine with a card and ``nvcc``:
+
+    python3 -m diffbinaural_tpu_torch.ops.snake_conv_variants [--rounds 3]
+
+builds the shipped sources and every variant (one ``nvcc`` each, all
+started together, under ``diffbinaural_tpu_torch/build/variants_sc/``), then
+prints one JSON line per kernel and shape: each build's kernel time from
+``torch.profiler`` over 20 back-to-back launches, the median over the rounds
+(the builds take turns, in reversed order every other round).  The variants
+that drop work give wrong outputs by design; none is compared.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import statistics
+import subprocess
+
+import torch
+
+from . import _build
+
+K3, K2 = "snake_conv.cu", "alias_free_act.cu"
+
+# variant -> (library it rebuilds, [(file, line replaced, replacement)])
+VARIANTS = {
+    "k3_no_activation": ("snake_conv", [
+        (K3, "  sch_activate<Cfg::WARPS>(", "  if (0) sch_activate<Cfg::WARPS>("),
+    ]),
+    "k3_no_product": ("snake_conv", [
+        (K3, "  for (int s = 1; s < n_steps - 1; s += 2) {",
+         "  for (int s = 1; s < 1; s += 2) {"),
+        (K3, "  sch_next<N>(st, n_steps - 1, acc, a1, a0);",
+         "  sch_next<N>(st, 1, acc, a1, a0);"),
+    ]),
+    "k3_two_stages": ("snake_conv", [
+        (K3, "  if (p->stages > SCH_MAX_STAGES) p->stages = SCH_MAX_STAGES;",
+         "  if (p->stages > 2) p->stages = 2;"),
+    ]),
+    "k3_three_stages": ("snake_conv", [
+        (K3, "  if (p->stages > SCH_MAX_STAGES) p->stages = SCH_MAX_STAGES;",
+         "  if (p->stages > 3) p->stages = 3;"),
+    ]),
+    "k3_groups_of_384": ("snake_conv", [
+        (K3, "  if (C % 768 == 0 && 2 * tiles * (C / 768) >= sms) return 768;",
+         "  (void)tiles;"),
+    ]),
+    "k2_runs_of_8": ("alias_free_act", [
+        (K2, "constexpr int AFA_RUN = 16;", "constexpr int AFA_RUN = 8;"),
+    ]),
+    "k2_runs_of_32": ("alias_free_act", [
+        (K2, "constexpr int AFA_RUN = 16;", "constexpr int AFA_RUN = 32;"),
+    ]),
+    "k2_128_threads": ("alias_free_act", [
+        (K2, "constexpr int AFA_THREADS = 256;", "constexpr int AFA_THREADS = 128;"),
+    ]),
+}
+
+# (B, C, T, k, dilation): the serving and stage-2 shapes of K3
+K3_SHAPES = [(2, 768, 3444, 3, 1), (2, 768, 3444, 7, 1), (2, 768, 3444, 7, 5),
+             (16, 768, 256, 3, 1), (16, 768, 256, 7, 1)]
+K2_SHAPES = [(2, 768, 3444), (2, 384, 13776), (2, 24, 220416), (16, 768, 256),
+             (16, 384, 1024)]
+
+
+def patched_sources(name: str) -> dict[str, str]:
+    """The text of every source file of ``csrc/`` with variant ``name``'s
+    replacements made ("shipped": none); raises if a replaced line is no
+    longer there."""
+    texts = {p.name: p.read_text() for p in sorted(_build.CSRC.iterdir())}
+    for file, old, new in VARIANTS.get(name, (None, []))[1]:
+        if old not in texts[file]:
+            raise ValueError(f"{name}: {file} no longer holds {old!r}")
+        texts[file] = texts[file].replace(old, new)
+    return texts
+
+
+def _build_all(names):
+    """One nvcc per (build, library), all started together; returns
+    {(name, lib): loaded CDLL}."""
+    _build.load("alias_free_act")  # writes the generated tap header
+    root = _build.BUILD_DIR / "variants_sc"
+    shutil.rmtree(root, ignore_errors=True)
+    started = {}
+    for name in names:
+        src_dir = root / name
+        src_dir.mkdir(parents=True)
+        for file, text in patched_sources(name).items():
+            (src_dir / file).write_text(text)
+        libs = ([VARIANTS[name][0]] if name in VARIANTS
+                else ["snake_conv", "alias_free_act"])
+        for lib in libs:
+            out = src_dir / f"lib{lib}.so"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src_dir),
+                   "-I", str(_build.BUILD_DIR), "-o", str(out),
+                   str(src_dir / _build.KERNELS[lib][0])]
+            started[(name, lib)] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), out)
+    loaded = {}
+    for (name, lib), (proc, out) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}/{lib}:\n{log}")
+        cdll = ctypes.CDLL(str(out))
+        for fn, argtypes in _build.KERNELS[lib][1].items():
+            getattr(cdll, fn).argtypes = argtypes
+            getattr(cdll, fn).restype = ctypes.c_int
+        loaded[(name, lib)] = cdll
+    return loaded
+
+
+def _kernel_ms(launch, calls: int = 20) -> float:
+    """Device time per launch from torch.profiler over back-to-back
+    launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            launch()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def _k3_launcher(cdll, b, c, t, k, d, gen):
+    from .alias_free_act import _effective
+    from .snake_conv import blocked_weight, co_block
+
+    x = torch.randn((b, c, t), generator=gen, device="cuda").bfloat16()
+    alpha, beta = (0.3 * torch.randn(c, generator=gen, device="cuda")
+                   for _ in range(2))
+    w = (0.02 * torch.randn((c, c, k), generator=gen, device="cuda")).bfloat16()
+    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    a, ib = _effective(alpha, beta, True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty_like(x)
+
+    def launch(blk=None):
+        wb = blocked_weight(w, blk=blk or co_block(c, b, t, sms))
+        stream = torch.cuda.current_stream().cuda_stream
+        return lambda: _build.check_launch("variant", cdll.snake_conv_forward(
+            x.data_ptr(), a.data_ptr(), ib.data_ptr(), wb.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, c, t, k, d, 1, stream))
+    return launch
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args()
+    names = ["shipped", *VARIANTS]
+    loaded = _build_all(names)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    for shape in K3_SHAPES:
+        builds = [n for n in names if n == "shipped" or VARIANTS[n][0] == "snake_conv"]
+        launchers = {n: _k3_launcher(loaded[(n, "snake_conv")], *shape, gen)
+                     for n in builds}
+        fns = {n: launchers[n](384 if n == "k3_groups_of_384" else None)
+               for n in builds}
+        times = {n: [] for n in builds}
+        for r in range(args.rounds):
+            for n in (builds if r % 2 == 0 else builds[::-1]):
+                times[n].append(_kernel_ms(fns[n]))
+        print(json.dumps({"kernel": "fused_snake_conv", "shape": list(shape),
+                          "gpu": smi, "ms": {n: statistics.median(v)
+                                             for n, v in times.items()}}),
+              flush=True)
+    for b, c, t in K2_SHAPES:
+        from .alias_free_act import _effective
+
+        builds = [n for n in names
+                  if n == "shipped" or VARIANTS[n][0] == "alias_free_act"]
+        x = torch.randn((b, c, t), generator=gen, device="cuda").bfloat16()
+        alpha, beta = (0.3 * torch.randn(c, generator=gen, device="cuda")
+                       for _ in range(2))
+        a, ib = _effective(alpha, beta, True)
+        out = torch.empty_like(x)
+        fns = {n: (lambda lib=loaded[(n, "alias_free_act")]: _build.check_launch(
+            "variant", lib.afa_snake_forward(
+                x.data_ptr(), a.data_ptr(), ib.data_ptr(), out.data_ptr(),
+                b, c, t, 1, torch.cuda.current_stream().cuda_stream)))
+            for n in builds}
+        times = {n: [] for n in builds}
+        for r in range(args.rounds):
+            for n in (builds if r % 2 == 0 else builds[::-1]):
+                times[n].append(_kernel_ms(fns[n]))
+        print(json.dumps({"kernel": "fused_alias_free_snake",
+                          "shape": [b, c, t], "gpu": smi,
+                          "ms": {n: statistics.median(v)
+                                 for n, v in times.items()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
