@@ -36,11 +36,14 @@ Float32 comparisons run with TF32 switched off for both matmuls and cuDNN
 convolutions, so the plain versions are true float32 references.
 
 Kernel times (``ms``) are per call over back-to-back calls between two CUDA
-events.  The anti-aliased activation (K2) and the fused snake->conv (K3) are
-faster than their Python wrappers' host side, so their calls are replayed
-from a CUDA graph (``graph_ms``); their case lines also give the kernel alone
-from ``torch.profiler`` (``kernel_ms``), the eager calls (``eager_ms``) and
-the host microseconds per call.
+events.  The anti-aliased activation (K2), the fused snake->conv (K3) and
+their backward kernels (K2b; K3b and its dz and dW kernels) are faster than
+their Python wrappers' host side, so their calls are replayed from a CUDA
+graph (``graph_ms``); their case lines also give the kernels alone from
+``torch.profiler`` (``kernel_ms``), the eager calls (``eager_ms``) and the
+host microseconds per call.  K2b is timed beside its earlier tiled kernel
+(``ops/alias_free_act_variants.py``), K3b beside its earlier composition
+(K2, cuDNN's convolution gradients, K2b).
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ GAN_CONFIG = "configs/bigvgan_binaural_22khz_80band_256x.json"
 GAN_BATCH, GAN_SEGMENT, GAN_STEPS = 16, 16384, 5
 # a generator pass: 109 anti-aliased activations, 12 of them (C = 768,
 # k <= 7) fused into the next convolution; each K3b recomputes the
-# activation with K2 and ends in K2b
+# activation with K2 and runs K2b
 ACT_PER_PASS, FUSED_PER_PASS = 97, 12
 
 
@@ -93,7 +96,8 @@ def launches(**nonzero) -> dict:
 # which path gives a kernel its launch count in the `kernels` line
 SERVING_KERNELS = ("flash_sdpa", "fused_alias_free_snake", "fused_snake_conv")
 TRAINING_KERNELS = ("flash_sdpa_with_lse", "flash_sdpa_backward")
-GAN_KERNELS = ("fused_alias_free_snake_backward", "fused_snake_conv_backward")
+GAN_KERNELS = ("fused_alias_free_snake_backward", "fused_snake_conv_backward",
+               "snake_conv_dgrad", "snake_conv_wgrad")
 SOURCES = {
     "flash_sdpa": ("diffbinaural_tpu_torch/ops/csrc/flash_d32.cu",
                    "diffbinaural_tpu/ops/flash_d32.py:175"),
@@ -109,11 +113,16 @@ SOURCES = {
     "fused_alias_free_snake_backward": (
         "diffbinaural_tpu_torch/ops/csrc/alias_free_act_bwd.cu",
         "diffbinaural_tpu/ops/alias_free_act.py:673"),
-    # K3b: K2 + the convolution's gradients + K2b (no kernel file of its own,
-    # as the TPU code has no pallas_call of its own there)
+    # K3b: K2 + the dz kernel + K2b + the dW kernel (no kernel file of its
+    # own, as the TPU code has no pallas_call of its own there); dz and dW
+    # replace the XLA convolution's VJP inside _core_bwd
     "fused_snake_conv_backward": (
         "diffbinaural_tpu_torch/ops/snake_conv.py",
         "diffbinaural_tpu/ops/snake_conv.py:204"),
+    "snake_conv_dgrad": ("diffbinaural_tpu_torch/ops/csrc/snake_conv.cu",
+                         "diffbinaural_tpu/ops/snake_conv.py:204"),
+    "snake_conv_wgrad": ("diffbinaural_tpu_torch/ops/csrc/snake_conv_wgrad.cu",
+                         "diffbinaural_tpu/ops/snake_conv.py:204"),
 }
 
 
@@ -173,10 +182,9 @@ def graph_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
-def kernel_ms(fn, kernel: str, calls: int = 20) -> float:
-    """Device time per call of the kernels whose name contains ``kernel``,
-    from ``torch.profiler`` over ``calls`` calls: the kernel alone, without
-    the wrapper's parameter preparation."""
+def _device_rows(fn, calls: int) -> list:
+    """(kernel name, device ms per call) of every kernel ``fn`` launches,
+    from ``torch.profiler`` over ``calls`` calls, the longest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -186,11 +194,26 @@ def kernel_ms(fn, kernel: str, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    rows = [(e.key, e.self_device_time_total / 1e3 / calls)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def kernel_ms(fn, kernel: str, calls: int = 20) -> float:
+    """Device time per call of the kernels whose name contains ``kernel``,
+    from ``torch.profiler`` over ``calls`` calls: the kernel alone, without
+    the wrapper's parameter preparation."""
+    total = sum(ms for key, ms in _device_rows(fn, calls) if kernel in key)
     if total <= 0:
         fail(f"kernel_ms: no device time for {kernel}")
-    return total / 1e3 / calls
+    return total
+
+
+def kernel_split(fn, calls: int = 20) -> list:
+    """Every kernel of ``fn`` with its device ms per call (names cut to 90
+    characters), the longest first."""
+    return [[key[:90], ms] for key, ms in _device_rows(fn, calls)]
 
 
 def time_run_ms(fn, calls: int, repeats: int = 3) -> float:
@@ -251,13 +274,20 @@ def phase_device() -> dict:
     return info
 
 
+TILED_K2B = None  # the earlier tiled K2b, built by phase_build (K2b's yardstick)
+
+
 def phase_build() -> None:
+    global TILED_K2B
     from diffbinaural_tpu_torch.ops import _build
+    from diffbinaural_tpu_torch.ops import alias_free_act_variants as afv
 
     t0 = time.time()
+    variants = afv.start(["tiled"])
     logs = _build.build_all(verbose=True)
     for name in _build.KERNELS:
         _build.load(name)
+    TILED_K2B = afv.finish(variants)["tiled"]
     ptxas = {name: [ln for ln in log.splitlines() if "registers" in ln
                     or "spill" in ln][:8] for name, log in logs.items()}
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
@@ -664,11 +694,16 @@ def check_k2b(gen, results):
     gradient's scale (same float32 arithmetic, other order; sincos against
     sin); bfloat16: dx 8e-3 of its scale (both round one float32 result to
     bfloat16), d alpha / d beta 2e-5 (float32 sums of the same products).
-    The six stage-2 shapes are timed; ragged shapes — T = 7 (shorter than
-    the filters' reach), 40 (one tile holding both edges), 1001 (several
-    tiles) at narrow and wide C — are compared."""
+    Two runs on the same inputs must give the same bits (no atomics).  The
+    six stage-2 shapes are timed as K2 is (``ms`` by graph replay,
+    ``kernel_ms`` the kernel alone, host µs), with the earlier tiled kernel
+    beside it (``tiled_ms``, ``tiled_kernel_ms``); ragged shapes — T = 7 (shorter than the
+    filters' reach), 40 (one run of each kind at both edges), 1001 (T not a
+    multiple of 8: every run on the edge path) at narrow and wide C — are
+    compared."""
     from diffbinaural_tpu_torch.ops import (alias_free_snake_backward_plain,
                                             fused_alias_free_snake_backward)
+    from diffbinaural_tpu_torch.ops import alias_free_act_variants as afv
 
     ragged = [(2, c, t) for c in (24, 768) for t in (7, 40, 1001)]
     for shape in [(GAN_BATCH, c, t) for c, t in GAN_STAGES] + ragged:
@@ -678,6 +713,11 @@ def check_k2b(gen, results):
             alpha = rand(gen, (c,), torch.float32, 0.3)
             beta = rand(gen, (c,), torch.float32, 0.3)
             got = fused_alias_free_snake_backward(x, dz, alpha, beta, True)
+            again = fused_alias_free_snake_backward(x, dz, alpha, beta, True)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                fail(f"fused_alias_free_snake_backward {shape}: two runs on "
+                     f"the same inputs differ")
+            del again
             want = alias_free_snake_backward_plain(x, dz, alpha, beta, True)
             tol_dx = 8e-3 if dtype == torch.bfloat16 else 2e-5
             worst = _grad_case("fused_alias_free_snake_backward",
@@ -693,8 +733,19 @@ def check_k2b(gen, results):
                     "dx_err_of_scale": worst, "dx_tol_of_scale": tol_dx,
                     "dparam_err_of_scale": worst_p, "dparam_tol_of_scale": 2e-5}
             if b == GAN_BATCH:
-                case["ms"] = time_ms(lambda: fused_alias_free_snake_backward(
-                    x, dz, alpha, beta, True))
+                def run():
+                    return fused_alias_free_snake_backward(x, dz, alpha, beta,
+                                                           True)
+                case["ms"] = graph_ms(run)
+                case["eager_ms"] = time_ms(run)
+                case["kernel_ms"] = kernel_ms(run, "afa_snake_bwd")
+                case["host_us_per_call"] = _host_us_per_call(run)
+
+                def tiled():
+                    return afv.backward(TILED_K2B, "tiled", x, dz, alpha,
+                                        beta, True)
+                case["tiled_ms"] = graph_ms(tiled)
+                case["tiled_kernel_ms"] = kernel_ms(tiled, "afa_snake_bwd")
                 case["plain_ms"] = time_ms(
                     lambda: alias_free_snake_backward_plain(x, dz, alpha, beta,
                                                             True))
@@ -708,53 +759,147 @@ def check_k2b(gen, results):
             results.append(case)
 
 
+def _conv_grad_cases(results, x, dy, alpha, beta, w, d, timed):
+    """The dz kernel (``snake_conv_dgrad``) and the dW kernel
+    (``snake_conv_wgrad``, on K2's z) against their plain versions, float32
+    ``conv1d_input`` / ``conv1d_weight`` on the same bfloat16 inputs.  dz:
+    1e-2 of its scale (both round one float32 sum of exact bfloat16
+    products to bfloat16); dW (float32): 1e-4 of its scale (sums of B*T
+    exact products in another order).  Timed: ``ms`` by graph replay,
+    ``kernel_ms``, and ``library_ms``, the same gradient from one
+    ``torch.nn.grad`` call in bfloat16 (cuDNN)."""
+    from diffbinaural_tpu_torch.ops import (fused_alias_free_snake,
+                                            snake_conv_dgrad,
+                                            snake_conv_dgrad_plain,
+                                            snake_conv_wgrad,
+                                            snake_conv_wgrad_plain)
+
+    b, c, t = x.shape
+    k = w.shape[2]
+    pad = (k - 1) // 2 * d
+    z = fused_alias_free_snake(x, alpha, beta, True)
+    runs = {
+        "snake_conv_dgrad": (
+            lambda: snake_conv_dgrad(dy, w, d),
+            lambda: snake_conv_dgrad_plain(dy, w, d),
+            lambda: torch.nn.grad.conv1d_input(dy.shape, w, dy, padding=pad,
+                                               dilation=d),
+            1e-2, "snake_conv_dgrad_kernel",
+            # dy and W read, dz written, in bfloat16
+            2.0 * (2 * b * c * t + k * c * c)),
+        "snake_conv_wgrad": (
+            lambda: snake_conv_wgrad(z, dy, k, d),
+            lambda: snake_conv_wgrad_plain(z, dy, k, d),
+            lambda: torch.nn.grad.conv1d_weight(z, w.shape, dy, padding=pad,
+                                                dilation=d),
+            1e-4, "snake_conv_wgrad",
+            # z and dy read in bfloat16, dW written in float32
+            2.0 * 2 * b * c * t + 4.0 * k * c * c),
+    }
+    for name, (run, plain, library, tol, kname, nbytes) in runs.items():
+        got, want = run(), plain()
+        if not torch.equal(got, run()):
+            fail(f"{name} {(b, c, t, k, d)}: two runs on the same inputs differ")
+        err = _compare(name, (b, c, t, k, d), got, want, tol, relative=True)
+        case = {"kernel": name, "shape": [b, c, t], "k": k, "dilation": d,
+                "dtype": "bf16", "max_err": err, "tol": tol,
+                "tol_relative_to_output_scale": True,
+                "err_of_scale": err / want.float().abs().max().item()}
+        if timed:
+            case["ms"] = graph_ms(run)
+            case["kernel_ms"] = kernel_ms(run, kname)
+            case["host_us_per_call"] = _host_us_per_call(run)
+            case["plain_ms"] = time_ms(plain)
+            case["library_ms"] = graph_ms(library)
+            _bound(case, 2.0 * b * t * k * c * c, nbytes, "bf16")
+        results.append(case)
+        del got, want
+
+
+# K3b's timed shapes: the stage-2 step's (B, C, T) at each (k, d) of its two
+# fused AMP blocks, and the C = 384 stage at d = 5 (the shapes a re-gate of
+# K3 would add), each (B, C, T, k, d)
+K3B_TIMED = ([(GAN_BATCH, 768, 256, k, d) for k in (3, 7) for d in (1, 3, 5)]
+             + [(2, 384, 13776, k, 5) for k in (3, 7, 11)])
+
+
 def check_k3b(gen, results):
-    """fused_snake_conv_backward (K3b: K2, the convolution's gradients, K2b)
-    vs its plain version (autograd through ``snake_conv_plain``): dx,
-    d alpha, d beta, dW, db.  float32: 1e-4 of each gradient's scale (sums
-    of 768*k or B*T terms in another order); bfloat16: 3e-2 (the plain
+    """fused_snake_conv_backward (K3b) vs its plain version (autograd through
+    ``snake_conv_plain``): dx, d alpha, d beta, dW, db.  float32 (the
+    composition: K2, the library's convolution gradients, K2b): 1e-4 of
+    each gradient's scale (sums of C*k or B*T terms in another order);
+    bfloat16 (K2, the dz kernel, K2b, the dW kernel): 3e-2 (the plain
     version rounds the activation to bfloat16 before the convolution and its
-    gradients; dW sums B*T = 4096 bfloat16 products).  The stage-2 shapes
-    are timed; a 40-sample clip (one tile, both edges) is compared."""
+    gradients; dW sums B*T bfloat16 products), and two runs on the same
+    inputs must give the same bits.  The timed shapes (``K3B_TIMED``) are
+    compared and timed in bfloat16 (``ms`` by graph replay, ``kernel_ms``
+    the device time of all it launches, ``parts``: each kernel's device ms
+    per call, ``composed_ms``: the composition timed the same way), the
+    C = 768 ones also compared in float32; a 40-sample clip (one tile, both
+    edges) is compared.  At every bfloat16 shape the dz and dW kernels are
+    also held against their plain versions (``_conv_grad_cases``)."""
     from diffbinaural_tpu_torch.ops import (fused_snake_conv_backward,
+                                            fused_snake_conv_backward_composed,
                                             snake_conv_backward_plain)
 
-    c = 768
-    cases = [(GAN_BATCH, 256, k, d) for k in (3, 7) for d in (1, 3, 5)]
-    cases.append((2, 40, 7, 5))
+    cases = [(*shape, dtype) for shape in K3B_TIMED
+             for dtype in (torch.float32, torch.bfloat16)
+             if dtype == torch.bfloat16 or shape[1] == 768]
+    cases += [(2, 768, 40, 7, 5, dtype)
+              for dtype in (torch.float32, torch.bfloat16)]
     labels = ("dx", "dalpha", "dbeta", "dW", "db")
-    for b, t, k, d in cases:
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
-            x, dy = rand(gen, (b, c, t), dtype), rand(gen, (b, c, t), dtype)
-            alpha = rand(gen, (c,), torch.float32, 0.3)
-            beta = rand(gen, (c,), torch.float32, 0.3)
-            w = rand(gen, (c, c, k), dtype, 0.02)
-            bias = rand(gen, (c,), torch.float32, 0.1)
-            args = (x, dy, alpha, beta, w, bias, d, True)
-            got = fused_snake_conv_backward(*args)
-            want = snake_conv_backward_plain(*args)
-            worst = _grad_case("fused_snake_conv_backward",
-                               (b, c, t, k, d, dt_name(dtype)), got, want,
-                               labels, tol)
-            case = {"kernel": "fused_snake_conv_backward", "shape": [b, c, t],
-                    "k": k, "dilation": d, "dtype": dt_name(dtype),
-                    "max_err": max((g.float() - v.float()).abs().max().item()
-                                   for g, v in zip(got, want)),
-                    "worst_err_of_scale": worst, "tol_of_scale": tol}
-            if b == GAN_BATCH:
-                case["ms"] = time_ms(lambda: fused_snake_conv_backward(*args))
-                case["plain_ms"] = time_ms(
-                    lambda: snake_conv_backward_plain(*args))
-                case["library_ms"] = None
-                n = float(b * c * t)
-                # dz and dW: two products of 2 B T k C^2; K2 and K2b around
-                flops = (4.0 * b * t * k * c * c
-                         + (K2_OPS_PER_SAMPLE + K2B_OPS_PER_SAMPLE) * n)
-                # x, dy, W read; dx, dW written; the per-channel vectors
-                nbytes = (3 * n + 2 * k * c * c) * x.element_size() + 28 * c
-                _bound(case, flops, nbytes, dt_name(dtype))
-            del got, want
-            results.append(case)
+    for b, c, t, k, d, dtype in cases:
+        bf16 = dtype == torch.bfloat16
+        tol = 3e-2 if bf16 else 1e-4
+        x, dy = rand(gen, (b, c, t), dtype), rand(gen, (b, c, t), dtype)
+        alpha = rand(gen, (c,), torch.float32, 0.3)
+        beta = rand(gen, (c,), torch.float32, 0.3)
+        w = rand(gen, (c, c, k), dtype, 0.02)
+        bias = rand(gen, (c,), torch.float32, 0.1)
+        args = (x, dy, alpha, beta, w, bias, d, True)
+        got = fused_snake_conv_backward(*args)
+        if bf16:
+            again = fused_snake_conv_backward(*args)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                fail(f"fused_snake_conv_backward {(b, c, t, k, d)}: two runs "
+                     f"on the same inputs differ")
+            del again
+        want = snake_conv_backward_plain(*args)
+        worst = _grad_case("fused_snake_conv_backward",
+                           (b, c, t, k, d, dt_name(dtype)), got, want, labels,
+                           tol)
+        case = {"kernel": "fused_snake_conv_backward", "shape": [b, c, t],
+                "k": k, "dilation": d, "dtype": dt_name(dtype),
+                "max_err": max((g.float() - v.float()).abs().max().item()
+                               for g, v in zip(got, want)),
+                "worst_err_of_scale": worst, "tol_of_scale": tol}
+        del got, want
+        timed = (b, c, t, k, d) in K3B_TIMED and bf16
+        if timed:
+            def run():
+                return fused_snake_conv_backward(*args)
+            case["ms"] = graph_ms(run)
+            case["composed_ms"] = graph_ms(
+                lambda: fused_snake_conv_backward_composed(*args))
+            case["eager_ms"] = time_ms(run)
+            case["kernel_ms"] = kernel_ms(run, "")
+            case["parts"] = kernel_split(run)
+            case["host_us_per_call"] = _host_us_per_call(run)
+            case["plain_ms"] = time_ms(
+                lambda: snake_conv_backward_plain(*args))
+            case["library_ms"] = None
+            n = float(b * c * t)
+            # dz and dW: two products of 2 B T k C^2; K2 and K2b around
+            flops = (4.0 * b * t * k * c * c
+                     + (K2_OPS_PER_SAMPLE + K2B_OPS_PER_SAMPLE) * n)
+            # x, dy, W read; dx, dW written; the per-channel vectors
+            nbytes = (3 * n + 2 * k * c * c) * x.element_size() + 28 * c
+            _bound(case, flops, nbytes, dt_name(dtype))
+        results.append(case)
+        if bf16:
+            _conv_grad_cases(results, x, dy, alpha, beta, w, d, timed)
+        del x, dy, w
+        torch.cuda.empty_cache()
 
 
 def phase_kernels() -> list:
@@ -1298,11 +1443,16 @@ def gan_batch(h, batch: int, seed: int) -> dict:
     return out
 
 
-def gan_launches(steps: int) -> dict:
+def gan_launches(steps: int, bf16: bool) -> dict:
+    """A stage-2 step's launches: K3b runs the dz and dW kernels in
+    bfloat16 and the composition (library convolution gradients) in
+    float32."""
     per_step = dict(fused_alias_free_snake=ACT_PER_PASS + FUSED_PER_PASS,
                     fused_alias_free_snake_backward=ACT_PER_PASS + FUSED_PER_PASS,
                     fused_snake_conv=FUSED_PER_PASS,
-                    fused_snake_conv_backward=FUSED_PER_PASS)
+                    fused_snake_conv_backward=FUSED_PER_PASS,
+                    snake_conv_dgrad=FUSED_PER_PASS if bf16 else 0,
+                    snake_conv_wgrad=FUSED_PER_PASS if bf16 else 0)
     return launches(**{k: v * steps for k, v in per_step.items()})
 
 
@@ -1388,8 +1538,9 @@ def phase_stage2_check() -> None:
                                if "deterministic" in str(w.message)})
     if ops.launch_counts() != before_plain:
         fail("stage2_check: plain_versions() launched a kernel")
-    if counts != gan_launches(1):
-        fail(f"stage2_check: launch counts {counts} != {gan_launches(1)}")
+    if counts != gan_launches(1, bf16=False):
+        fail(f"stage2_check: launch counts {counts} != "
+             f"{gan_launches(1, bf16=False)}")
     rel = {}
     for name in GAN_METRICS:
         if not np.isfinite(m_k[name]):
@@ -1480,9 +1631,9 @@ def phase_stage2_path(trace_steps: int = 0) -> dict:
         fail(f"stage2_path: state.step {state.step}")
     if not all(np.isfinite(v) for r in rows for v in r.values()):
         fail(f"stage2_path: metrics {rows}")
-    if counts != gan_launches(GAN_STEPS):
+    if counts != gan_launches(GAN_STEPS, bf16=True):
         fail(f"stage2_path: launch counts {counts} != "
-             f"{gan_launches(GAN_STEPS)}")
+             f"{gan_launches(GAN_STEPS, bf16=True)}")
     for m in (gen, mpd, mrd):
         if not all(torch.isfinite(p).all() for p in m.parameters()):
             fail("stage2_path: a parameter is not finite after the steps")
@@ -1516,6 +1667,10 @@ def kernels_line(cases, counts) -> dict:
         "fused_alias_free_snake_backward":
             lambda c: c["shape"] == [GAN_BATCH, 24, 16384],
         "fused_snake_conv_backward": lambda c: c.get("k") == 7
+        and c.get("dilation") == 5 and c["shape"] == [GAN_BATCH, 768, 256],
+        "snake_conv_dgrad": lambda c: c.get("k") == 7
+        and c.get("dilation") == 5 and c["shape"] == [GAN_BATCH, 768, 256],
+        "snake_conv_wgrad": lambda c: c.get("k") == 7
         and c.get("dilation") == 5 and c["shape"] == [GAN_BATCH, 768, 256],
     }
     rows = []

@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.flash_d32 import flash_sdpa
+from ..ops.flash_d32 import HEAD_DIM, flash_sdpa
 from .layers import Dense, GroupNormNHWC
 from .norms import ChannelLayerNorm
 
@@ -52,12 +52,14 @@ class TimeFiLM(nn.Module):
 def _sdpa(q, k, v, scale: float):
     """Scaled dot-product attention over (B, H, N, D) tokens.
 
-    Sequences of ``FLASH_MIN_TOKENS`` or more go to ``ops.flash_sdpa``
-    (the hand-written kernels on the card, forward and backward; the N x N
-    scores are never materialised): bfloat16 passes straight through,
-    anything else runs in float32.  Shorter ones are the dense product with
-    a float32 softmax, differentiated by autograd."""
-    if q.shape[2] >= FLASH_MIN_TOKENS:
+    Sequences of ``FLASH_MIN_TOKENS`` or more with a head dimension of
+    ``HEAD_DIM`` (32, the only one the kernels take) go to
+    ``ops.flash_sdpa`` (the hand-written kernels on the card, forward and
+    backward; the N x N scores are never materialised): bfloat16 passes
+    straight through, anything else runs in float32.  Shorter ones, and
+    every other head dimension (as the JAX package off the TPU), are the
+    dense product with a float32 softmax, differentiated by autograd."""
+    if q.shape[2] >= FLASH_MIN_TOKENS and q.shape[3] == HEAD_DIM:
         dt = torch.bfloat16 if v.dtype == torch.bfloat16 else torch.float32
         out = flash_sdpa(
             q.to(dt).contiguous(), k.to(dt).contiguous(),

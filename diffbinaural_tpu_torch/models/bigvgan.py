@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from ..core.config import VocoderConfig
 from ..ops.alias_free_act import fused_alias_free_snake
-from ..ops.snake_conv import fused_snake_conv, snake_conv_eligible
+from ..ops.snake_conv import (fused_snake_conv, snake_conv_eligible,
+                              snake_conv_plannable)
 
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -176,16 +177,18 @@ class Activation1d(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _snake_conv_fusable(channels: int, kernel_size: int) -> bool:
-    """Gate for the fused snake->conv kernel: the widest AMP stage
-    (channels >= 768) with at most 7 taps, on an eligible shape.  The gate
-    is the JAX package's; whether the fused kernel or the activation kernel
-    followed by a library convolution wins on this card is still to be
-    decided from measurements."""
+def _snake_conv_fusable(channels: int, kernel_size: int, dilation: int) -> bool:
+    """Gate for the fused snake->conv kernel, per convolution: the widest
+    AMP stage (channels >= 768) with at most 7 taps, as the JAX package
+    gates it, on an eligible shape that the bfloat16 kernels' shared-memory
+    plans can place (forward and dz, ``ops.snake_conv.snake_conv_plannable``).
+    Whether the fused kernel or the activation kernel followed by a library
+    convolution wins on this card is still to be decided from measurements."""
     return (
         channels >= 768
         and kernel_size <= 7
         and snake_conv_eligible(channels, channels, kernel_size)
+        and snake_conv_plannable(channels, kernel_size, dilation)
     )
 
 
@@ -198,7 +201,10 @@ class AMPBlock1(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.n = len(dilation)
-        self.fuse = _snake_conv_fusable(channels, kernel_size)
+        # per pair: (fuse the dilated conv, fuse the unit conv)
+        self.fuse = tuple((_snake_conv_fusable(channels, kernel_size, d),
+                           _snake_conv_fusable(channels, kernel_size, 1))
+                          for d in dilation)
         for i, d in enumerate(dilation):
             setattr(self, f"act{2 * i}",
                     Activation1d(channels, activation, alpha_logscale))
@@ -215,10 +221,9 @@ class AMPBlock1(nn.Module):
         for i in range(self.n):
             act_a, conv_a = getattr(self, f"act{2 * i}"), getattr(self, f"conv1_{i}")
             act_b, conv_b = getattr(self, f"act{2 * i + 1}"), getattr(self, f"conv2_{i}")
-            if self.fuse:
-                xt = conv_b(conv_a(x, snake=act_a.raw()), snake=act_b.raw())
-            else:
-                xt = conv_b(act_b(conv_a(act_a(x))))
+            fuse_a, fuse_b = self.fuse[i]
+            xt = conv_a(x, snake=act_a.raw()) if fuse_a else conv_a(act_a(x))
+            xt = conv_b(xt, snake=act_b.raw()) if fuse_b else conv_b(act_b(xt))
             x = xt + x
         return x
 
@@ -232,7 +237,8 @@ class AMPBlock2(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.n = len(dilation)
-        self.fuse = _snake_conv_fusable(channels, kernel_size)
+        self.fuse = tuple(_snake_conv_fusable(channels, kernel_size, d)
+                          for d in dilation)
         for i, d in enumerate(dilation):
             setattr(self, f"act{i}",
                     Activation1d(channels, activation, alpha_logscale))
@@ -243,7 +249,7 @@ class AMPBlock2(nn.Module):
     def forward(self, x):
         for i in range(self.n):
             act, conv = getattr(self, f"act{i}"), getattr(self, f"conv_{i}")
-            xt = conv(x, snake=act.raw()) if self.fuse else conv(act(x))
+            xt = conv(x, snake=act.raw()) if self.fuse[i] else conv(act(x))
             x = xt + x
         return x
 

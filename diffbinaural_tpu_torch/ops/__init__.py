@@ -17,9 +17,14 @@ from .flash_d32 import (
 from .snake_conv import (
     fused_snake_conv,
     fused_snake_conv_backward,
+    fused_snake_conv_backward_composed,
     snake_conv_backward_plain,
+    snake_conv_dgrad,
+    snake_conv_dgrad_plain,
     snake_conv_eligible,
     snake_conv_plain,
+    snake_conv_wgrad,
+    snake_conv_wgrad_plain,
 )
 
 WRAPPERS = {
@@ -30,6 +35,8 @@ WRAPPERS = {
     "fused_alias_free_snake_backward": fused_alias_free_snake_backward,
     "fused_snake_conv": fused_snake_conv,
     "fused_snake_conv_backward": fused_snake_conv_backward,
+    "snake_conv_dgrad": snake_conv_dgrad,
+    "snake_conv_wgrad": snake_conv_wgrad,
 }
 
 
@@ -48,7 +55,8 @@ __all__ = [
     "fused_alias_free_snake", "fused_alias_free_snake_backward", "flash_sdpa",
     "flash_sdpa_backward", "flash_sdpa_with_lse", "sdpa_backward_plain",
     "sdpa_plain", "sdpa_plain_with_lse", "fused_snake_conv",
-    "fused_snake_conv_backward", "snake_conv_backward_plain",
-    "snake_conv_eligible", "snake_conv_plain", "launch_counts",
-    "reset_launch_counts",
+    "fused_snake_conv_backward", "fused_snake_conv_backward_composed",
+    "snake_conv_backward_plain", "snake_conv_dgrad", "snake_conv_dgrad_plain",
+    "snake_conv_eligible", "snake_conv_plain", "snake_conv_wgrad",
+    "snake_conv_wgrad_plain", "launch_counts", "reset_launch_counts",
 ]

@@ -56,7 +56,7 @@ KERNELS = {
     ),
     "alias_free_act_bwd": (
         "alias_free_act_bwd.cu",
-        # x, dz, alpha, inv_beta, dx, da_part, db_part, B, C, T, n_tiles,
+        # x, dz, alpha, inv_beta, dx, da_part, db_part, B, C, T, n_pieces,
         # is_bf16, stream
         {"afa_snake_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _P]},
@@ -67,7 +67,16 @@ KERNELS = {
         # blocked layout of snake_conv.py:blocked_weight), bias, out, B, C,
         # T, k, dilation, is_bf16, stream
         {"snake_conv_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _P]},
+                                _I, _P],
+         # dy, w (blocked_weight of the flipped, transposed kernel), dz, B,
+         # C, T, k, dilation, stream
+         "snake_conv_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    ),
+    "snake_conv_wgrad": (
+        "snake_conv_wgrad.cu",
+        # z, zt (scratch: z transposed and padded), dy, part, B, C, T, k,
+        # dilation, n_split, stream
+        {"snake_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
     ),
 }
 

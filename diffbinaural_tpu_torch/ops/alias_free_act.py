@@ -9,8 +9,8 @@ two CUDA kernels that serve every channel count:
     ``_fwd_kernel_mxu`` / ``_fwd_kernel``): ``csrc/alias_free_act.cu``;
   * K2b, the backward (``_core_bwd`` -> ``_fused_backward`` ->
     ``_bwd_kernel_mxu`` / ``_bwd_kernel``): ``csrc/alias_free_act_bwd.cu``,
-    dx and per-(batch, time tile, channel) partial sums of d alpha and
-    d beta, summed here (no atomics).
+    dx and per-(row, warp) partial sums of d alpha and d beta, summed here
+    (no atomics).
 
 ``fused_alias_free_snake`` ties them together behind a
 ``torch.autograd.Function`` on the effective parameters; the exp of a
@@ -22,10 +22,10 @@ On this card both are bound by bytes — K2 reads x and writes z, K2b reads
 x and dz and writes dx, against a few dozen FMAs and one or two sines per
 sample — so both keep the 2x-rate intermediate on the chip and move each
 element once; time is the contiguous axis, which makes every load and store
-coalesced.  K2 is register-blocked: each thread owns 16 consecutive outputs
-of the flat array (aligned 16-byte loads and stores whatever T is) and
-computes its lattice and down-FIR in registers, clamping only in the runs
-that touch a row's ends; K2b stages tiles in shared memory.
+coalesced.  Both are register-blocked: each thread owns a run of
+consecutive outputs (K2: 16 of the flat array, aligned 16-byte loads and
+stores whatever T is; K2b: 8 of one row) and computes its lattice and FIRs
+in registers, clamping only in the runs that touch a row's ends.
 
 Edges: the kernels and the plain versions have the semantics of the
 unfused composition — x is replicate-padded, and the down-FIR's replicate
@@ -34,9 +34,9 @@ backward is its exact adjoint, every pad position's gradient added onto the
 first / last sample.  The TPU kernels instead continue the FIR over the
 replicated input and drop that scatter in the backward, which differs on
 the outer few samples; here the port equals the JAX package's CPU path on
-every sample.  K2b takes the exact ``sincosf``; K2 takes sin^2 from the
-hardware sine after reducing its argument by the nearest multiple of pi
-(sin^2 has period pi), absolute error below 2^-20.9.
+every sample.  Both take the hardware sine after reducing its argument by
+the nearest multiple of pi (sin^2 and sin(2u), all they need, have period
+pi), absolute error below 2^-20.9.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ from . import _build
 
 RATIO = 2
 KSIZE = 12
-BWD_TILE = 512  # samples per block of K2b (csrc/alias_free_act_bwd.cu)
+BWD_RUN = 8  # dx outputs per thread of K2b (csrc/alias_free_act_bwd.cu)
 
 
 @functools.lru_cache(maxsize=1)
@@ -249,9 +249,9 @@ def fused_alias_free_snake_backward(x, dz, alpha, beta, logscale: bool = True):
     """The backward alone.  x, dz: (B, C, T) of one type, contiguous;
     alpha/beta: (C,) raw parameters (log-space when ``logscale``).  Returns
     ``(dx, dalpha, dbeta)`` as :func:`alias_free_snake_backward_plain`.  A
-    CUDA tensor launches K2b (or raises): one float32 partial per (batch,
-    time tile, channel), summed here in a fixed order; the plain version
-    is taken only for tensors that lie on the CPU."""
+    CUDA tensor launches K2b (or raises): float32 partials in slots per
+    (row, warp), summed here in a fixed order; the plain version is taken
+    only for tensors that lie on the CPU."""
     name = "fused_alias_free_snake_backward"
     check_act_inputs(name, x, alpha, beta)
     if dz.shape != x.shape or dz.dtype != x.dtype or dz.device != x.device:
@@ -264,23 +264,31 @@ def fused_alias_free_snake_backward(x, dz, alpha, beta, logscale: bool = True):
         raise ValueError(f"{name}: dz must be contiguous")
     a, inv_b = _effective(alpha, beta, logscale)
     b, c, t = x.shape
-    n_tiles = -(-t // BWD_TILE)
+    x, dz = aligned(x), aligned(dz)
+    n_pieces = bwd_pieces(t)
     dx = torch.empty_like(x)
-    da_p = torch.empty((b, n_tiles, c), dtype=torch.float32, device=x.device)
-    db_p = torch.empty_like(da_p)
+    # (C, B, slots) per gradient; slots a row's warps do not reach stay zero
+    part = torch.zeros((2, c, b * n_pieces), dtype=torch.float32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         lib = _build.load("alias_free_act_bwd")
         code = lib.afa_snake_backward(
             x.data_ptr(), dz.data_ptr(), a.data_ptr(), inv_b.data_ptr(),
-            dx.data_ptr(), da_p.data_ptr(), db_p.data_ptr(), b, c, t, n_tiles,
-            int(x.dtype == torch.bfloat16),
+            dx.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), b, c, t,
+            n_pieces, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(name, code)
     fused_alias_free_snake_backward.launches += 1
-    da, db = _chain_logscale(da_p.sum(dim=(0, 1)), db_p.sum(dim=(0, 1)),
-                             alpha, beta, logscale)
+    da, db = _chain_logscale(*part.sum(dim=2), alpha, beta, logscale)
     return dx, da, db
+
+
+def bwd_pieces(t: int) -> int:
+    """K2b's d alpha / d beta slots per row: one per warp of 32 runs that
+    the row's runs can touch."""
+    runs = -(-t // BWD_RUN)
+    return -(-runs // 32) + 1
 
 
 fused_alias_free_snake.launches = 0

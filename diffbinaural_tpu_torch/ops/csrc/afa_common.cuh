@@ -10,9 +10,9 @@
 // up-FIR, snake, replicate-pad the 2x-rate signal, down-FIR): the index of x
 // is clamped to [0, T-1] AND the lattice index n is clamped to [0, 2T-1].
 // All arithmetic is float32.  The shared-memory helpers below (afa_stage_x,
-// afa_mid, afa_down) use the exact sinf; the register-blocked forward at
-// the end of the file (K2 and the bfloat16 K3's activation) uses afa_sin2,
-// a range-reduced hardware sine.
+// afa_mid, afa_down; the float32 K3) use the exact sinf; the register-blocked
+// code at the end of the file (K2, K2b and the bfloat16 K3's activation)
+// uses a range-reduced hardware sine (afa_sin2, afa_sincos_pi).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,19 +78,27 @@ __device__ __forceinline__ float afa_down(const float* me, const float* mo,
          AFA_H9 * e[4] + AFA_H8 * o[4] + AFA_H11 * e[5] + AFA_H10 * o[5];
 }
 
-// ------------------------------------------------ register-blocked forward
+// --------------------------------------------- register-blocked kernels
 
-// sin^2(u).  sin^2 has period pi, so u is reduced by the nearest multiple of
-// pi (two-constant Cody-Waite) to [-pi/2, pi/2], where the hardware sine's
-// absolute error is below 2^-20.9; the reduction itself is exact to ~1e-7 of
-// u's last bit for |u| < 1e4.  An absolute error of 1e-6 in mid moves z by
-// less than that (the down-FIR's taps sum to 1).
-__device__ __forceinline__ float afa_sin2(float u) {
+// The snake needs sin^2(u) (forward) and sin(2u) (backward), both of period
+// pi, so u is reduced by the nearest multiple of pi (two-constant
+// Cody-Waite) to [-pi/2, pi/2], where the hardware sine's absolute error is
+// below 2^-20.9; the reduction itself is exact to ~1e-7 of u's last bit for
+// |u| < 1e4.  An absolute error of 1e-6 in mid moves z by less than that
+// (the down-FIR's taps sum to 1).
+__device__ __forceinline__ float afa_reduce_pi(float u) {
   const float k = rintf(u * 0.318309886183790672f);
-  float r = fmaf(-k, 3.14159274101257324f, u);   // float(pi)
-  r = fmaf(-k, -8.74227766e-08f, r);             // pi - float(pi)
-  const float s = __sinf(r);
+  const float r = fmaf(-k, 3.14159274101257324f, u);   // float(pi)
+  return fmaf(-k, -8.74227766e-08f, r);                // pi - float(pi)
+}
+__device__ __forceinline__ float afa_sin2(float u) {
+  const float s = __sinf(afa_reduce_pi(u));
   return s * s;
+}
+// sin(u) and cos(u), both times the same sign (-1)^k: exact for the
+// products s * s and s * c (= sin(2u) / 2), both of period pi.
+__device__ __forceinline__ void afa_sincos_pi(float u, float* s, float* c) {
+  __sincosf(afa_reduce_pi(u), s, c);
 }
 
 // mid from the up-FIR of six consecutive x values (even phase: p[i] =
@@ -155,4 +163,39 @@ __device__ __forceinline__ void afa_run(const float* xw, int t0, int T_len,
   }
 #pragma unroll
   for (int i = 0; i < R; ++i) z[i] = afa_down(me, mo, i);
+}
+
+// ------------------------------------------------------ 16-byte vectors
+
+// 8 consecutive values as float from a 16-byte aligned address.
+__device__ __forceinline__ void afa_load8(const __nv_bfloat16* p, float* v) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void afa_load8(const float* p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void afa_store8(__nv_bfloat16* p, const float* v) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void afa_store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }

@@ -25,39 +25,6 @@
 constexpr int AFA_RUN = 16;      // consecutive outputs per thread
 constexpr int AFA_THREADS = 256;
 
-// 8 consecutive values as float from a 16-byte aligned address.
-__device__ __forceinline__ void afa_load8(const __nv_bfloat16* p, float* v) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void afa_load8(const float* p, float* v) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void afa_store8(__nv_bfloat16* p, const float* v) {
-  uint4 u;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p) = u;
-}
-__device__ __forceinline__ void afa_store8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(AFA_THREADS)
 afa_snake_kernel(const T* __restrict__ x, const float* __restrict__ alpha,

@@ -46,6 +46,18 @@
 // The ring's last stage(s) hold the activation's scratch until the product
 // starts, so only the stages before them are loaded during the activation.
 //
+// The same block, without the activation, is K3b's dz kernel
+// (snake_conv_dgrad_kernel, snake_conv_dgrad): the gradient of a stride-1
+// convolution with respect to its input is the convolution of dy with the
+// kernel's channels swapped and taps reversed, W~[ci, co, j] = W[co, ci,
+// k-1-j], at the same padding and dilation.  So Z is a copy of dy (step 1
+// copies it, transposing to [row][channel], rows outside the clip zeroed)
+// and the weight ring streams W~: the wrapper lays W out with channels
+// swapped (ops/snake_conv.py:dgrad_blocked_weight) and the ring takes its
+// taps in reverse order (SchStep::w_step); no bias.  It replaces the
+// input half of the VJP of the XLA convolution in _core_bwd
+// (diffbinaural_tpu/ops/snake_conv.py:197-207).
+//
 // float32 (snake_conv_kernel): the CUDA cores in float32 (the float32
 // checks run with TF32 off and hold K3 to 2e-4 of scale, which tensor-core
 // TF32 products would not meet).  One block computes a tile of 128 output
@@ -247,25 +259,30 @@ static int sch_co_block(int C, int B, int T_len, int sms) {
 }
 
 // Shared-memory plan of one launch: Z | ring stages | barriers (after the
-// base is aligned to TILE_ALIGN).  Returns false if it does not fit.
+// base is aligned to TILE_ALIGN).  Returns false if it does not fit.  ACT:
+// the forward, whose activation reads an x window of at most SCH_XW_MAX and
+// borrows the ring's last stages as scratch; the dz kernel needs neither.
+// ops/snake_conv.py:sch_plan is its transcription, which the model's gate
+// asks before it sends a convolution to these kernels.
 struct SchPlan {
   int z_bytes, stages, pre_stages, bytes;
 };
 static bool sch_plan(int C, int k, int dil, int warps, int stage_bytes,
-                     SchPlan* p) {
+                     bool act, SchPlan* p) {
   const int hz = (k - 1) / 2 * dil;
   const int zr = SCH_TM + 2 * hz;
   p->z_bytes = round_up(zr * (2 * C + SCH_ZPAD), TILE_ALIGN);
   const int avail = MAX_DYNAMIC_SMEM - TILE_ALIGN - p->z_bytes - SCH_BAR_BYTES;
   p->stages = avail / stage_bytes;
   if (p->stages > SCH_MAX_STAGES) p->stages = SCH_MAX_STAGES;
-  const int scratch = warps * sch_scratch_floats(zr) * 4;
+  const int scratch = act ? warps * sch_scratch_floats(zr) * 4 : 0;
   const int scratch_stages = (scratch + stage_bytes - 1) / stage_bytes;
   p->pre_stages = p->stages - scratch_stages;
   p->bytes = p->z_bytes + p->stages * stage_bytes + SCH_BAR_BYTES;
   // the epilogue stages CO_BLK rows of SCH_OUT_ROW bytes in the space of Z
   // and the ring, both idle by then
-  return zr + 10 <= SCH_XW_MAX && p->stages >= 2 && p->pre_stages >= 1 &&
+  return (!act || zr + 10 <= SCH_XW_MAX) && p->stages >= 2 &&
+         p->pre_stages >= 1 &&
          stage_bytes / (SCH_KC * 2) * SCH_OUT_ROW <=
              p->z_bytes + p->stages * stage_bytes;
 }
@@ -339,11 +356,19 @@ struct SchStep {
   uint32_t a_base;   // this lane's ldmatrix row address at step 0
   int tap_bytes;     // Z bytes per tap: dil rows
   int c16, stages, stage_bytes, n_steps;
+  int rev_k;         // dz kernel: k, its weight tiles in reversed tap order
   uint32_t ring0, b0, full0, empty0;  // b0: ring stage 0 + this warpgroup's rows
   const uint8_t* wsrc;                // the block's weight tiles, step by step
   __device__ __forceinline__ uint32_t a_addr(int s) const {
     const int j = s / c16;
     return a_base + j * tap_bytes + (s - j * c16) * (SCH_KC * 2);
+  }
+  // the weight tile of step s: tap j, or tap k-1-j of the dz kernel's
+  // weight (W~'s tap j is W's tap k-1-j)
+  __device__ __forceinline__ int w_step(int s) const {
+    if (rev_k == 0) return s;
+    const int j = s / c16;
+    return s + (rev_k - 1 - 2 * j) * c16;
   }
 };
 // Thread 0: bulk copy of step s's weight tile into its stage, once every
@@ -355,7 +380,8 @@ __device__ __forceinline__ void sch_load(const SchStep& st, int s) {
   const uint32_t bar = st.full0 + 8 * slot;
   mbar_expect_tx(bar, st.stage_bytes);
   bulk_load(st.ring0 + slot * st.stage_bytes,
-            st.wsrc + (size_t)s * st.stage_bytes, st.stage_bytes, bar);
+            st.wsrc + (size_t)st.w_step(s) * st.stage_bytes, st.stage_bytes,
+            bar);
 }
 template <int N>
 __device__ __forceinline__ void sch_issue(const SchStep& st, int s, float* acc,
@@ -478,16 +504,62 @@ __device__ __forceinline__ void sch_activate(
   }
 }
 
-template <int N, int NCONS>
-__global__ void __launch_bounds__(SchCfg<N, NCONS>::THREADS, 1)
-snake_conv_wg_kernel(const __nv_bfloat16* __restrict__ x,
-                     const float* __restrict__ alpha,
-                     const float* __restrict__ inv_beta,
-                     const __nv_bfloat16* __restrict__ wb,
-                     const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ out, int C, int T_len, int k,
-                     int dil, int n_tt, int n_groups, int z_bytes, int stages,
-                     int pre_stages) {
+// The dz kernel's step 1: Z[r][c] = dy[c][tb - hz + r] for every channel,
+// zero outside [0, T).  A warp copies units of 8 rows x 8 channels: lane l
+// takes row l & 7 and the channel pair 2 (l >> 3), so its 4-byte store
+// falls in a bank of its own (Z's rows are 4 banks apart) and each channel's
+// eight samples are one 16-byte run of dy.  SCH_DY_BATCH units' loads are
+// issued before their stores, so that their latencies overlap (24 against 8
+// or 1: 10 % off the dz kernel, PERF.md).
+constexpr int SCH_DY_BATCH = 24;
+template <int WARPS>
+__device__ __forceinline__ void sch_stage_dy(const __nv_bfloat16* __restrict__ dyb,
+                                             uint8_t* z, int C, int T_len,
+                                             int tb, int hz, int z_stride) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int zr = SCH_TM + 2 * hz;
+  const int t_lo = tb - hz;
+  const int n_rb = (zr + 7) / 8;
+  const int n_units = n_rb * (C / 8);
+  const int r_in = lane & 7, c_in = 2 * (lane >> 3);
+  for (int u0 = warp; u0 < n_units; u0 += SCH_DY_BATCH * WARPS) {
+    __nv_bfloat162 v[SCH_DY_BATCH];
+#pragma unroll
+    for (int q = 0; q < SCH_DY_BATCH; ++q) {
+      const int u = u0 + q * WARPS;
+      const int r = (u % n_rb) * 8 + r_in;
+      const int c = (u / n_rb) * 8 + c_in;
+      const int t = t_lo + r;
+      v[q] = __floats2bfloat162_rn(0.0f, 0.0f);
+      if (u < n_units && r < zr && t >= 0 && t < T_len) {
+        v[q].x = dyb[(size_t)c * T_len + t];
+        v[q].y = dyb[(size_t)(c + 1) * T_len + t];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < SCH_DY_BATCH; ++q) {
+      const int u = u0 + q * WARPS;
+      const int r = (u % n_rb) * 8 + r_in;
+      const int c = (u / n_rb) * 8 + c_in;
+      if (u < n_units && r < zr)
+        *reinterpret_cast<__nv_bfloat162*>(z + r * z_stride + 2 * c) = v[q];
+    }
+  }
+}
+
+// The bfloat16 block of both kernels.  ACT: the forward (Z = the activation
+// of x, plus the bias); else the dz kernel (Z = dy, no bias; x is dy and
+// alpha, inv_beta, bias are unused).
+template <int N, int NCONS, bool ACT>
+__device__ __forceinline__ void sch_block(const __nv_bfloat16* __restrict__ x,
+                                          const float* __restrict__ alpha,
+                                          const float* __restrict__ inv_beta,
+                                          const __nv_bfloat16* __restrict__ wb,
+                                          const float* __restrict__ bias,
+                                          __nv_bfloat16* __restrict__ out, int C,
+                                          int T_len, int k, int dil, int n_tt,
+                                          int n_groups, int z_bytes, int stages,
+                                          int pre_stages) {
   using Cfg = SchCfg<N, NCONS>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = aligned_smem_base(smem_raw);
@@ -518,8 +590,8 @@ snake_conv_wg_kernel(const __nv_bfloat16* __restrict__ x,
                           (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * z_stride +
                           16 * (lane >> 4);
   const SchStep st{a_base, dil * z_stride, c16, stages, Cfg::STAGE_BYTES,
-                   n_steps, ring0, ring0 + wg * N * (SCH_KC * 2), full0,
-                   empty0, wsrc};
+                   n_steps, ACT ? 0 : k, ring0, ring0 + wg * N * (SCH_KC * 2),
+                   full0, empty0, wsrc};
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -532,10 +604,15 @@ snake_conv_wg_kernel(const __nv_bfloat16* __restrict__ x,
   if (threadIdx.x == 0) {
     for (int s = 0; s < pre_stages; ++s) sch_load(st, s);
   }
-  sch_activate<Cfg::WARPS>(
-      x + (size_t)b * C * T_len, alpha, inv_beta, zp,
-      reinterpret_cast<float*>(zp + z_bytes + pre_stages * Cfg::STAGE_BYTES),
-      C, T_len, tb, hz, z_stride);
+  if constexpr (ACT) {
+    sch_activate<Cfg::WARPS>(
+        x + (size_t)b * C * T_len, alpha, inv_beta, zp,
+        reinterpret_cast<float*>(zp + z_bytes + pre_stages * Cfg::STAGE_BYTES),
+        C, T_len, tb, hz, z_stride);
+  } else {
+    sch_stage_dy<Cfg::WARPS>(x + (size_t)b * C * T_len, zp, C, T_len, tb, hz,
+                             z_stride);
+  }
   // the scratch's generic writes before the bulk copies that reuse it
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
@@ -573,7 +650,8 @@ snake_conv_wg_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < N / 8; ++i) {
     const int n = 8 * i + 2 * t4;
-    const float b0 = bias[co_blk0 + n], b1 = bias[co_blk0 + n + 1];
+    const float b0 = ACT ? bias[co_blk0 + n] : 0.0f;
+    const float b1 = ACT ? bias[co_blk0 + n + 1] : 0.0f;
     __nv_bfloat16* r0 = reinterpret_cast<__nv_bfloat16*>(stage + n * SCH_OUT_ROW);
     __nv_bfloat16* r1 = reinterpret_cast<__nv_bfloat16*>(stage + (n + 1) * SCH_OUT_ROW);
     r0[m0] = __float2bfloat16(acc[4 * i] + b0);
@@ -597,28 +675,89 @@ snake_conv_wg_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 template <int N, int NCONS>
+__global__ void __launch_bounds__(SchCfg<N, NCONS>::THREADS, 1)
+snake_conv_wg_kernel(const __nv_bfloat16* __restrict__ x,
+                     const float* __restrict__ alpha,
+                     const float* __restrict__ inv_beta,
+                     const __nv_bfloat16* __restrict__ wb,
+                     const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, int C, int T_len, int k,
+                     int dil, int n_tt, int n_groups, int z_bytes, int stages,
+                     int pre_stages) {
+  sch_block<N, NCONS, true>(x, alpha, inv_beta, wb, bias, out, C, T_len, k,
+                            dil, n_tt, n_groups, z_bytes, stages, pre_stages);
+}
+
+template <int N, int NCONS>
+__global__ void __launch_bounds__(SchCfg<N, NCONS>::THREADS, 1)
+snake_conv_dgrad_kernel(const __nv_bfloat16* __restrict__ dy,
+                        const __nv_bfloat16* __restrict__ wb,
+                        __nv_bfloat16* __restrict__ dz, int C, int T_len, int k,
+                        int dil, int n_tt, int n_groups, int z_bytes,
+                        int stages, int pre_stages) {
+  sch_block<N, NCONS, false>(dy, nullptr, nullptr, wb, nullptr, dz, C, T_len,
+                             k, dil, n_tt, n_groups, z_bytes, stages,
+                             pre_stages);
+}
+
+template <int N, int NCONS, bool ACT>
 static int sch_launch(const void* x, const void* alpha, const void* inv_beta,
                       const void* w, const void* bias, void* out, int B, int C,
                       int T_len, int k, int dil, cudaStream_t s) {
   using Cfg = SchCfg<N, NCONS>;
   SchPlan plan;
-  if (!sch_plan(C, k, dil, Cfg::WARPS, Cfg::STAGE_BYTES, &plan))
+  if (!sch_plan(C, k, dil, Cfg::WARPS, Cfg::STAGE_BYTES, ACT, &plan))
     return (int)cudaErrorInvalidValue;
   // the whole of it allowed once per device, whatever this launch's plan
-  const int e = allow_smem<snake_conv_wg_kernel<N, NCONS>>(MAX_DYNAMIC_SMEM -
-                                                           TILE_ALIGN);
+  const int e = ACT ? allow_smem<snake_conv_wg_kernel<N, NCONS>>(
+                          MAX_DYNAMIC_SMEM - TILE_ALIGN)
+                    : allow_smem<snake_conv_dgrad_kernel<N, NCONS>>(
+                          MAX_DYNAMIC_SMEM - TILE_ALIGN);
   if (e != 0) return e;
   const int n_tt = (T_len + SCH_TM - 1) / SCH_TM;
   const int n_groups = C / Cfg::CO_BLK;
   const long long blocks = (long long)B * n_tt * n_groups;
   if (blocks <= 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  snake_conv_wg_kernel<N, NCONS>
-      <<<(unsigned)blocks, Cfg::THREADS, plan.bytes + TILE_ALIGN, s>>>(
-          (const __nv_bfloat16*)x, (const float*)alpha, (const float*)inv_beta,
-          (const __nv_bfloat16*)w, (const float*)bias, (__nv_bfloat16*)out, C,
-          T_len, k, dil, n_tt, n_groups, plan.z_bytes, plan.stages,
-          plan.pre_stages);
+  if constexpr (ACT) {
+    snake_conv_wg_kernel<N, NCONS>
+        <<<(unsigned)blocks, Cfg::THREADS, plan.bytes + TILE_ALIGN, s>>>(
+            (const __nv_bfloat16*)x, (const float*)alpha, (const float*)inv_beta,
+            (const __nv_bfloat16*)w, (const float*)bias, (__nv_bfloat16*)out, C,
+            T_len, k, dil, n_tt, n_groups, plan.z_bytes, plan.stages,
+            plan.pre_stages);
+  } else {
+    snake_conv_dgrad_kernel<N, NCONS>
+        <<<(unsigned)blocks, Cfg::THREADS, plan.bytes + TILE_ALIGN, s>>>(
+            (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+            (__nv_bfloat16*)out, C, T_len, k, dil, n_tt, n_groups,
+            plan.z_bytes, plan.stages, plan.pre_stages);
+  }
   return (int)cudaGetLastError();
+}
+
+// The block shape for (B, C, T) on this card: sch_co_block's choice.
+template <bool ACT>
+static int sch_dispatch(const void* x, const void* alpha, const void* inv_beta,
+                        const void* w, const void* bias, void* out, int B,
+                        int C, int T_len, int k, int dil, cudaStream_t s) {
+  if (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  switch (sch_co_block(C, B, T_len, sms)) {
+    case 768:
+      return sch_launch<256, 3, ACT>(x, alpha, inv_beta, w, bias, out, B, C,
+                                     T_len, k, dil, s);
+    case 384:
+      return sch_launch<128, 3, ACT>(x, alpha, inv_beta, w, bias, out, B, C,
+                                     T_len, k, dil, s);
+    default:
+      return sch_launch<128, 1, ACT>(x, alpha, inv_beta, w, bias, out, B, C,
+                                     T_len, k, dil, s);
+  }
 }
 
 // float32: w tap-major, (k, C_in, C_out), contiguous.  bfloat16: w in the
@@ -633,27 +772,22 @@ extern "C" int snake_conv_forward(const void* x, const void* alpha,
                                   void* stream) {
   if (C % SC_CO != 0 || k % 2 != 1 || dil < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    if (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) % 16 != 0)
-      return (int)cudaErrorMisalignedAddress;
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    switch (sch_co_block(C, B, T_len, sms)) {
-      case 768:
-        return sch_launch<256, 3>(x, alpha, inv_beta, w, bias, out, B, C,
-                                  T_len, k, dil, s);
-      case 384:
-        return sch_launch<128, 3>(x, alpha, inv_beta, w, bias, out, B, C,
-                                  T_len, k, dil, s);
-      default:
-        return sch_launch<128, 1>(x, alpha, inv_beta, w, bias, out, B, C,
-                                  T_len, k, dil, s);
-    }
-  }
+  if (is_bf16)
+    return sch_dispatch<true>(x, alpha, inv_beta, w, bias, out, B, C, T_len, k,
+                              dil, s);
   return sc_launch<float>(x, alpha, inv_beta, w, bias, out, B, C, T_len, k,
                           dil, s);
+}
+
+// dz = conv1d(dy, W~, padding (k-1)/2 * dil, dilation dil), bfloat16, with
+// W~[ci, co, j] = W[co, ci, k-1-j]: w is blocked_weight's layout of
+// W[co, ci, j] with co and ci swapped and the taps in W's order (CO_BLK as
+// above); dy, w and dz 16-byte aligned.
+extern "C" int snake_conv_dgrad(const void* dy, const void* w, void* dz, int B,
+                                int C, int T_len, int k, int dil,
+                                void* stream) {
+  if (C % SC_CO != 0 || k % 2 != 1 || dil < 1) return (int)cudaErrorInvalidValue;
+  return sch_dispatch<false>(dy, nullptr, nullptr, w, nullptr, dz, B, C, T_len,
+                             k, dil, (cudaStream_t)stream);
 }
 

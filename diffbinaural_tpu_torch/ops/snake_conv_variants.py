@@ -1,12 +1,17 @@
-"""Variants of the vocoder's forward kernels, built side by side and timed
-in turns on one card: the measurement behind the bfloat16 K3's split of
-time between the activation and the product, its ring depth and its
-output-channel block, and behind K2's run length.
+"""Variants of the vocoder's kernels, built side by side and timed in turns
+on one card: the measurement behind the bfloat16 K3's split of time between
+the activation and the product, its ring depth and its output-channel
+block, behind K2's run length, and behind the dW kernel's tile and ring.
 
 Each variant is the shipped source with a few lines replaced: K3 without
 its activation or without its product (each leaves the other's time), with
-two or three ring stages, or with two output-channel groups of 384 at every
-grid; K2 with runs of 8 or 32 outputs per thread, or 128-thread blocks.
+two or three ring stages, with each stage refilled one step later (thread
+0 then waits on the other warps one step less often), or with two
+output-channel groups of 384 at every grid (the dz kernel, K3's block
+without the activation, is timed beside the forward, and with its copy of dy
+issuing 1 or 8 units' loads ahead of their stores instead of 24); K2 with runs of 8 or 32 outputs per thread, or 128-thread blocks; the
+dW kernel with three ring stages, or with tiles of 64 input channels (one
+consumer warpgroup); and the shipped dW kernel without its K split.
 Every line a variant replaces must still be in the sources, so a variant
 that no longer applies fails before anything is built
 (``tests/test_torch_snake_conv_tiling.py`` checks that on the CPU).  On a
@@ -35,7 +40,7 @@ import torch
 
 from . import _build
 
-K3, K2 = "snake_conv.cu", "alias_free_act.cu"
+K3, K2, KW = "snake_conv.cu", "alias_free_act.cu", "snake_conv_wgrad.cu"
 
 # variant -> (library it rebuilds, [(file, line replaced, replacement)])
 VARIANTS = {
@@ -56,6 +61,16 @@ VARIANTS = {
         (K3, "  if (p->stages > SCH_MAX_STAGES) p->stages = SCH_MAX_STAGES;",
          "  if (p->stages > 3) p->stages = 3;"),
     ]),
+    "k3_refill_lag2": ("snake_conv", [
+        (K3, "  if (threadIdx.x == 0) sch_load(st, s - 1 + st.stages);",
+         "  if (threadIdx.x == 0 && s >= 2) sch_load(st, s - 2 + st.stages);"),
+    ]),
+    "dz_batch_1": ("snake_conv", [
+        (K3, "constexpr int SCH_DY_BATCH = 24;", "constexpr int SCH_DY_BATCH = 1;"),
+    ]),
+    "dz_batch_8": ("snake_conv", [
+        (K3, "constexpr int SCH_DY_BATCH = 24;", "constexpr int SCH_DY_BATCH = 8;"),
+    ]),
     "k3_groups_of_384": ("snake_conv", [
         (K3, "  if (C % 768 == 0 && 2 * tiles * (C / 768) >= sms) return 768;",
          "  (void)tiles;"),
@@ -69,6 +84,14 @@ VARIANTS = {
     "k2_128_threads": ("alias_free_act", [
         (K2, "constexpr int AFA_THREADS = 256;", "constexpr int AFA_THREADS = 128;"),
     ]),
+    "wgrad_three_stages": ("snake_conv_wgrad", [
+        (KW, "constexpr int SCW_STAGES = 4;", "constexpr int SCW_STAGES = 3;"),
+    ]),
+    "wgrad_bm64": ("snake_conv_wgrad", [
+        (KW, "constexpr int SCW_BM = 128; ", "constexpr int SCW_BM = 64; "),
+        (KW, "constexpr int SCW_CONSUMERS = 2; ",
+         "constexpr int SCW_CONSUMERS = 1; "),
+    ]),
 }
 
 # (B, C, T, k, dilation): the serving and stage-2 shapes of K3
@@ -76,6 +99,14 @@ K3_SHAPES = [(2, 768, 3444, 3, 1), (2, 768, 3444, 7, 1), (2, 768, 3444, 7, 5),
              (16, 768, 256, 3, 1), (16, 768, 256, 7, 1)]
 K2_SHAPES = [(2, 768, 3444), (2, 384, 13776), (2, 24, 220416), (16, 768, 256),
              (16, 384, 1024)]
+# (B, C, T, k, dilation): the dz kernel's stage-2 and C = 384 shapes, and
+# the variants of K3's block that apply to it
+KD_SHAPES = [(16, 768, 256, 3, 1), (16, 768, 256, 7, 5), (2, 384, 13776, 7, 5)]
+DGRAD_VARIANTS = ("k3_two_stages", "k3_three_stages", "k3_refill_lag2",
+                  "dz_batch_1", "dz_batch_8")
+# (B, C, T, k, dilation): the dW kernel's stage-2 and C = 384 shapes
+KW_SHAPES = [(16, 768, 256, 3, 1), (16, 768, 256, 7, 1), (16, 768, 256, 7, 5),
+             (2, 384, 13776, 7, 5)]
 
 
 def patched_sources(name: str) -> dict[str, str]:
@@ -103,7 +134,7 @@ def _build_all(names):
         for file, text in patched_sources(name).items():
             (src_dir / file).write_text(text)
         libs = ([VARIANTS[name][0]] if name in VARIANTS
-                else ["snake_conv", "alias_free_act"])
+                else ["snake_conv", "alias_free_act", "snake_conv_wgrad"])
         for lib in libs:
             out = src_dir / f"lib{lib}.so"
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src_dir),
@@ -163,6 +194,40 @@ def _k3_launcher(cdll, b, c, t, k, d, gen):
     return launch
 
 
+def _kw_launcher(cdll, name, b, c, t, k, d, gen):
+    """One dW launch of build ``name`` on random (B, C, T) bfloat16 operands;
+    its K split from the wrapper's rule at that build's tile (none for
+    ``no_split``)."""
+    from .snake_conv import WGRAD_BM, wgrad_splits
+
+    hz = (k - 1) // 2 * d
+    z, dy = (torch.randn((b, c, t), generator=gen, device="cuda").bfloat16()
+             for _ in range(2))
+    zt = torch.empty((b, t + 2 * hz, c), dtype=torch.bfloat16, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bm = 64 if name == "wgrad_bm64" else WGRAD_BM
+    split = 1 if name == "no_split" else wgrad_splits(c, k, b, t, sms, bm)
+    part = torch.empty((split, k, c, c), dtype=torch.float32, device="cuda")
+    return lambda: _build.check_launch("variant", cdll.snake_conv_wgrad(
+        z.data_ptr(), zt.data_ptr(), dy.data_ptr(), part.data_ptr(), b, c, t,
+        k, d, split, torch.cuda.current_stream().cuda_stream))
+
+
+def _dgrad_launcher(cdll, b, c, t, k, d, gen):
+    """One dz launch (K3's block with Z = dy) of a build on random
+    operands."""
+    from .snake_conv import co_block, dgrad_blocked_weight
+
+    dy = torch.randn((b, c, t), generator=gen, device="cuda").bfloat16()
+    w = (0.02 * torch.randn((c, c, k), generator=gen, device="cuda")).bfloat16()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wb = dgrad_blocked_weight(w, blk=co_block(c, b, t, sms))
+    out = torch.empty_like(dy)
+    return lambda: _build.check_launch("variant", cdll.snake_conv_dgrad(
+        dy.data_ptr(), wb.data_ptr(), out.data_ptr(), b, c, t, k, d,
+        torch.cuda.current_stream().cuda_stream))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
@@ -174,7 +239,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     for shape in K3_SHAPES:
-        builds = [n for n in names if n == "shipped" or VARIANTS[n][0] == "snake_conv"]
+        builds = [n for n in names if n == "shipped" or (
+            VARIANTS[n][0] == "snake_conv" and not n.startswith("dz_"))]
         launchers = {n: _k3_launcher(loaded[(n, "snake_conv")], *shape, gen)
                      for n in builds}
         fns = {n: launchers[n](384 if n == "k3_groups_of_384" else None)
@@ -184,6 +250,19 @@ def main() -> None:
             for n in (builds if r % 2 == 0 else builds[::-1]):
                 times[n].append(_kernel_ms(fns[n]))
         print(json.dumps({"kernel": "fused_snake_conv", "shape": list(shape),
+                          "gpu": smi, "ms": {n: statistics.median(v)
+                                             for n, v in times.items()}}),
+              flush=True)
+    for shape in KD_SHAPES:
+        builds = [n for n in names if n == "shipped"
+                  or (VARIANTS[n][0] == "snake_conv" and n in DGRAD_VARIANTS)]
+        fns = {n: _dgrad_launcher(loaded[(n, "snake_conv")], *shape, gen)
+               for n in builds}
+        times = {n: [] for n in builds}
+        for r in range(args.rounds):
+            for n in (builds if r % 2 == 0 else builds[::-1]):
+                times[n].append(_kernel_ms(fns[n]))
+        print(json.dumps({"kernel": "snake_conv_dgrad", "shape": list(shape),
                           "gpu": smi, "ms": {n: statistics.median(v)
                                              for n, v in times.items()}}),
               flush=True)
@@ -210,6 +289,21 @@ def main() -> None:
                           "shape": [b, c, t], "gpu": smi,
                           "ms": {n: statistics.median(v)
                                  for n, v in times.items()}}), flush=True)
+    for shape in KW_SHAPES:
+        builds = ["shipped", "no_split"] + [
+            n for n in names if n in VARIANTS
+            and VARIANTS[n][0] == "snake_conv_wgrad"]
+        fns = {n: _kw_launcher(loaded[("shipped" if n == "no_split" else n,
+                                       "snake_conv_wgrad")], n, *shape, gen)
+               for n in builds}
+        times = {n: [] for n in builds}
+        for r in range(args.rounds):
+            for n in (builds if r % 2 == 0 else builds[::-1]):
+                times[n].append(_kernel_ms(fns[n]))
+        print(json.dumps({"kernel": "snake_conv_wgrad", "shape": list(shape),
+                          "gpu": smi, "ms": {n: statistics.median(v)
+                                             for n, v in times.items()}}),
+              flush=True)
 
 
 if __name__ == "__main__":

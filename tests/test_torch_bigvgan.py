@@ -114,10 +114,11 @@ def test_remove_weight_norm_is_a_numerical_no_op():
 
 
 def test_widest_amp_stage_takes_the_fused_snake_conv_gate():
-    assert bigvgan._snake_conv_fusable(768, 3)
-    assert bigvgan._snake_conv_fusable(768, 7)
-    assert not bigvgan._snake_conv_fusable(768, 11)
-    assert not bigvgan._snake_conv_fusable(384, 3)
+    for d in (1, 3, 5):
+        assert bigvgan._snake_conv_fusable(768, 3, d)
+        assert bigvgan._snake_conv_fusable(768, 7, d)
+        assert not bigvgan._snake_conv_fusable(768, 11, d)
+        assert not bigvgan._snake_conv_fusable(384, 3, d)
 
 
 def test_fused_amp_block_equals_unfused():
@@ -129,9 +130,9 @@ def test_fused_amp_block_equals_unfused():
         for p in block.parameters():
             p.copy_(t(0.05 * rng.standard_normal(tuple(p.shape)).astype(np.float32)))
         x = t(rng.standard_normal((1, 128, 50)).astype(np.float32))
-        assert not block.fuse
+        assert block.fuse == ((False, False), (False, False))
         want = block(x)
-        block.fuse = True
+        block.fuse = ((True, True), (True, True))
         got = block(x)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 

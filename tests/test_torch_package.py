@@ -165,10 +165,13 @@ def test_wrappers_on_cpu_tensors_leave_launch_counts_at_zero():
     leaves = [t.clone().requires_grad_() for t in (x, a, w)]
     ops.fused_alias_free_snake(leaves[0], leaves[1], a).sum().backward()
     ops.fused_snake_conv(leaves[0], leaves[1], a, leaves[2], a).sum().backward()
+    ops.snake_conv_dgrad(x, w, 1)
+    ops.snake_conv_wgrad(x, x, 3, 1)
     assert ops.launch_counts() == {
         "flash_sdpa": 0, "flash_sdpa_with_lse": 0, "flash_sdpa_backward": 0,
         "fused_alias_free_snake": 0, "fused_alias_free_snake_backward": 0,
-        "fused_snake_conv": 0, "fused_snake_conv_backward": 0}
+        "fused_snake_conv": 0, "fused_snake_conv_backward": 0,
+        "snake_conv_dgrad": 0, "snake_conv_wgrad": 0}
 
 
 def test_wrappers_never_take_the_plain_version_for_another_device():
@@ -193,3 +196,7 @@ def test_wrappers_never_take_the_plain_version_for_another_device():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.fused_snake_conv_backward(
             x, x, a, a, torch.empty(128, 128, 3, device="meta"), a)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.snake_conv_dgrad(x, torch.empty(128, 128, 3, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.snake_conv_wgrad(x, x, 3)

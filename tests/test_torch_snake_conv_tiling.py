@@ -27,7 +27,9 @@ import torch.nn.functional as F
 from diffbinaural_tpu_torch.ops import alias_free_snake_plain, snake_conv_plain
 from diffbinaural_tpu_torch.ops._build import CSRC
 from diffbinaural_tpu_torch.ops.alias_free_act import _effective, _taps
-from diffbinaural_tpu_torch.ops.snake_conv import blocked_weight, co_block
+from diffbinaural_tpu_torch.ops.snake_conv import (blocked_weight, co_block,
+                                                   sch_plan)
+from diffbinaural_tpu_torch.ops import alias_free_act_variants as afb_variants
 from diffbinaural_tpu_torch.ops.snake_conv_variants import (VARIANTS,
                                                             patched_sources)
 
@@ -70,25 +72,90 @@ def _round_up(x: int, a: int) -> int:
 
 
 def _plan(c: int, k: int, dil: int, blk: int = 0) -> dict:
-    """``sch_plan`` of snake_conv.cu: Z | ring stages | barriers, the
-    activation's scratch in the ring's last stages."""
-    cfg = _cfg(c, blk)
-    hz = (k - 1) // 2 * dil
-    zr = TM + 2 * hz
-    stage = cfg["stage_bytes"]
-    z_bytes = _round_up(zr * (2 * c + C["SCH_ZPAD"]), C["TILE_ALIGN"])
-    avail = (C["MAX_DYNAMIC_SMEM"] - C["TILE_ALIGN"] - z_bytes
-             - C["SCH_BAR_BYTES"])
-    stages = min(avail // stage, C["SCH_MAX_STAGES"])
-    # the x window and the two lattice phases, each with the slack that the
-    # last lane's run of SCH_RUN reads past its end
-    scratch = cfg["warps"] * ((zr + 10) + 2 * (zr + 5)
-                              + 3 * C["SCH_RUN_SLACK"]) * 4
-    pre = stages - -(-scratch // stage)
-    return {"zr": zr, "z_bytes": z_bytes, "stages": stages,
-            "pre_stages": pre, "scratch": scratch,
-            "scratch_off": z_bytes + pre * stage,
-            "bytes": z_bytes + stages * stage + C["SCH_BAR_BYTES"], **cfg}
+    """``sch_plan`` of snake_conv.cu for the forward (the package's
+    transcription, which the model's gate asks): Z | ring stages |
+    barriers, the activation's scratch in the ring's last stages."""
+    return sch_plan(c, k, dil, blk or co_block(c))
+
+
+def test_plan_transcription_matches_the_kernel():
+    """The package's constants and ``sch_plan`` against the source text."""
+    from diffbinaural_tpu_torch.ops import snake_conv as sc
+
+    for name in ("SCH_TM", "SCH_KC", "SCH_ZPAD", "SCH_MAX_STAGES",
+                 "SCH_XW_MAX", "SCH_RUN_SLACK", "SCH_OUT_ROW",
+                 "SCH_BAR_BYTES", "TILE_ALIGN", "MAX_DYNAMIC_SMEM",
+                 "WG_THREADS"):
+        assert getattr(sc, name) == C[name], name
+    body = re.search(r"static bool sch_plan\(int C, int k, int dil, int warps, "
+                     r"int stage_bytes,\s+bool act, SchPlan\* p\) \{(.*?)\n\}",
+                     SOURCE, re.S).group(1)
+    for line in (
+            "const int zr = SCH_TM + 2 * hz;",
+            "p->z_bytes = round_up(zr * (2 * C + SCH_ZPAD), TILE_ALIGN);",
+            "const int avail = MAX_DYNAMIC_SMEM - TILE_ALIGN - p->z_bytes - SCH_BAR_BYTES;",
+            "p->stages = avail / stage_bytes;",
+            "if (p->stages > SCH_MAX_STAGES) p->stages = SCH_MAX_STAGES;",
+            "const int scratch = act ? warps * sch_scratch_floats(zr) * 4 : 0;",
+            "p->pre_stages = p->stages - scratch_stages;",
+            "return (!act || zr + 10 <= SCH_XW_MAX) && p->stages >= 2 &&"):
+        assert line in body, line
+    assert "return (zr + 10) + 2 * (zr + 5) + 3 * SCH_RUN_SLACK;" in SOURCE
+    assert re.search(r"sch_plan\(C, k, dil, Cfg::WARPS, Cfg::STAGE_BYTES, ACT, &plan\)",
+                     SOURCE)
+    for blk, (n, ncons) in sc.SCH_BLOCKS.items():
+        assert _cfg(blk)["n"] == n and _cfg(blk)["ncons"] == ncons
+
+
+def test_gate_admits_only_plannable_shapes():
+    """Fault C1: every (C, k, d) that the model's gate sends to the fused
+    kernels fits the forward's and the dz kernel's plans at every block the
+    kernels may pick; C = 1536 is refused at every k <= 7."""
+    from diffbinaural_tpu_torch.models.bigvgan import _snake_conv_fusable
+
+    admitted = 0
+    for c in range(128, 2049, 128):
+        for k in (3, 5, 7, 11):
+            for d in (1, 3, 5):
+                if not _snake_conv_fusable(c, k, d):
+                    continue
+                admitted += 1
+                blocks = {co_block(c, b, t, 132)
+                          for b, t in ((1, 1), (64, 4096))}
+                for blk in blocks:
+                    for act in (True, False):
+                        p = sch_plan(c, k, d, blk, act)
+                        assert p["fits"], (c, k, d, blk, act)
+                        assert p["bytes"] + C["TILE_ALIGN"] <= C["MAX_DYNAMIC_SMEM"]
+    assert admitted > 0
+    assert not any(_snake_conv_fusable(1536, k, d)
+                   for k in (3, 5, 7) for d in (1, 3, 5))
+    assert not _snake_conv_fusable(1152, 7, 5)
+    assert not _snake_conv_fusable(1280, 7, 5)
+
+
+def test_gate_keeps_the_configs_choice():
+    """At every AMP convolution of the shipped configs the gate chooses as
+    the JAX package's gate (C >= 768, k <= 7): the plan check changes
+    nothing there."""
+    import json
+    from pathlib import Path
+
+    from diffbinaural_tpu_torch.models.bigvgan import _snake_conv_fusable
+
+    seen = 0
+    for path in sorted(Path(__file__).resolve().parents[1].glob("configs/*.json")):
+        h = json.loads(path.read_text())
+        c0 = h["upsample_initial_channel"]
+        for i in range(len(h["upsample_rates"])):
+            c = c0 // 2 ** (i + 1)
+            for k, dils in zip(h["resblock_kernel_sizes"],
+                               h["resblock_dilation_sizes"]):
+                for d in (*dils, 1):
+                    want = c >= 768 and k <= 7 and c % 128 == 0
+                    assert _snake_conv_fusable(c, k, d) == want, (path, c, k, d)
+                    seen += 1
+    assert seen > 0
 
 
 def test_co_block_matches_the_kernel():
@@ -108,9 +175,9 @@ def test_co_block_matches_the_kernel():
     assert co_block(768, 2, 3444, 132) == 768
     assert co_block(768, 16, 256, 132) == 384
     for blk, (n, ncons) in {768: (256, 3), 384: (128, 3), 128: (128, 1)}.items():
-        assert re.search(rf"case {blk}:\n\s+return sch_launch<{n}, {ncons}>",
+        assert re.search(rf"case {blk}:\n\s+return sch_launch<{n}, {ncons}, ACT>",
                          SOURCE) or (blk == 128 and re.search(
-                             rf"default:\n\s+return sch_launch<{n}, {ncons}>",
+                             rf"default:\n\s+return sch_launch<{n}, {ncons}, ACT>",
                              SOURCE))
 
 
@@ -381,10 +448,11 @@ def test_alias_free_runs_cover_edges_and_interior():
 
 
 def test_sine_range_reduction():
-    """afa_sin2's reduction in float32 (numpy's sine standing in for the
-    hardware one on [-pi/2, pi/2]) against float64 sin^2 for |u| <= 200."""
+    """afa_reduce_pi's reduction (K2's sin^2, K2b's sincos) in float32
+    (numpy's sine standing in for the hardware one on [-pi/2, pi/2])
+    against float64 sin^2 for |u| <= 200."""
     text = (CSRC / "afa_common.cuh").read_text()
-    body = text[text.index("float afa_sin2"):]
+    body = text[text.index("float afa_reduce_pi"):]
     inv_pi, pi_a, pi_b = (np.float32(v) for v in re.findall(
         r"(-?\d+\.\d+(?:e-?\d+)?)f", body)[:3])
     u = np.linspace(-200, 200, 400_001, dtype=np.float32)
@@ -410,3 +478,13 @@ def test_variant_applies(name):
     changed = {f for f in texts if texts[f] != shipped[f]}
     from diffbinaural_tpu_torch.ops._build import KERNELS
     assert changed == {KERNELS[lib][0]}
+
+
+@pytest.mark.parametrize("name", sorted(afb_variants.VARIANTS))
+def test_k2b_variant_applies(name):
+    """Every K2b variant of ``ops/alias_free_act_variants.py`` still finds
+    the lines it replaces (``tiled``: its own source, kept whole)."""
+    text = afb_variants.source(name)
+    assert "extern \"C\" int afa_snake_backward(" in text
+    assert (text != (CSRC / "alias_free_act_bwd.cu").read_text()) == (
+        bool(afb_variants.VARIANTS[name][1]) or name == "tiled")

@@ -179,3 +179,20 @@ def test_long_sequences_go_through_the_flash_wrapper(monkeypatch):
             *(jnp.asarray(a.numpy()) for a in (q, k, v)), 32**-0.5))
         np.testing.assert_allclose(out.numpy(), want, rtol=2e-5, atol=2e-5)
     assert calls == [1024]
+
+
+def test_other_head_dims_take_the_dense_path(monkeypatch):
+    """The kernels take d_head = 32 only: a long sequence with another head
+    dimension takes the dense product (as the JAX package off the TPU), so
+    that it runs on the card instead of raising there."""
+    calls = []
+    monkeypatch.setattr(attention, "flash_sdpa",
+                        lambda *a: calls.append(a) or a[0])
+    rng = np.random.default_rng(11)
+    q, k, v = (t(rng.standard_normal((1, 2, 1024, 64)).astype(np.float32))
+               for _ in range(3))
+    out = attention._sdpa(q, k, v, 64**-0.5)
+    assert calls == []
+    want = np.asarray(jax_attention._sdpa(
+        *(jnp.asarray(a.numpy()) for a in (q, k, v)), 64**-0.5))
+    np.testing.assert_allclose(out.numpy(), want, rtol=2e-5, atol=2e-5)
