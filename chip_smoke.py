@@ -11,6 +11,14 @@ weights from a seed:
     through the plain versions (float32, two DDIM steps), then the 10 s clip
     in bfloat16 (861 frames, 21 windows in 3 groups of 8, DDIM-25, BigVGAN
     vocoder);
+  * serving from checkpoints — the full-width UNet and the production
+    generator written as flax msgpack and read back onto the card bit for
+    bit (also through the upstream BigVGAN names); DPM-Solver++(2M) through
+    the kernels against through the plain versions (float32, three steps);
+    then ``cli.generate_binaural`` on 10 s wavs from those checkpoints with
+    DDIM-25 and with DPM++-12 (bfloat16), each clip held bit for bit against
+    ``BinauralPipeline`` called directly, and the three vocoder CLIs on the
+    stitched mels against the modules they drive;
   * stage-1 training — one step's loss and every parameter's gradient
     through the kernels against the same through the plain versions
     (float32, batch 2), then optimiser steps in bfloat16 at batch 16 on a
@@ -28,9 +36,10 @@ result.
 
     python3 chip_smoke.py --trace 10
 
-also traces 10 UNet calls, one vocoder pass, 3 stage-1 and 3 stage-2 train
-steps with ``torch.profiler`` and prints, for each, the wall time, the summed device
-time, the device's busy share and the ten kernels with the most device time.
+also traces 10 UNet calls, one vocoder pass, one clip with each sampler, 3
+stage-1 and 3 stage-2 train steps with ``torch.profiler`` and prints, for
+each, the wall time, the summed device time, the device's busy share and the
+ten kernels with the most device time.
 
 Float32 comparisons run with TF32 switched off for both matmuls and cuDNN
 convolutions, so the plain versions are true float32 references.
@@ -54,6 +63,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1151,6 +1161,346 @@ def phase_main_path(trace_steps: int = 0) -> dict:
     return out
 
 
+# ------------------------------------------------- serving from checkpoints
+
+SERVE_BUCKET, DPM_STEPS, SERVE_CLIPS = 64, 12, 4  # CLI default bucket; 1 + 3
+SERVE_SAMPLERS = (("ddim", DDIM_STEPS), ("dpm++", DPM_STEPS))
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _same_tensors(name, got, want) -> int:
+    """Every tensor of ``got``'s state dict bit for bit that of ``want``."""
+    a, b = got.state_dict(), want.state_dict()
+    if a.keys() != b.keys():
+        fail(f"{name}: state dict keys differ")
+    bad = [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+    if bad:
+        fail(f"{name}: {len(bad)} tensors differ after the round trip, e.g. "
+             f"{bad[:3]}")
+    return len(a)
+
+
+def phase_checkpoint_roundtrip(workdir: str) -> dict:
+    """The full-width serving UNet (dim 64) and the generator of
+    ``GAN_CONFIG``, random from seeds, written as the JAX trainers write
+    them (``tree_to_flax`` -> ``save_checkpoint``: ``unet_best.pth`` = the
+    UNet's variables, ``voc/g_00000001`` = ``{"generator": variables}``,
+    the config copied beside it) and loaded back onto the card into models
+    built from other seeds: every tensor bit for bit.  The generator also
+    goes through the upstream BigVGAN names (``export_bigvgan_to_torch`` ->
+    ``torch.save`` -> ``from_pretrained``'s torch branch), again bit for
+    bit.  Seconds: save = card -> flax tree -> file; load = file -> tree;
+    to_card = tree -> ``state_dict`` -> ``load_state_dict`` on the card;
+    build = a model with random weights on the card, as the CLI builds it
+    before loading."""
+    import os
+    import shutil
+
+    from diffbinaural_tpu_torch import models
+    from diffbinaural_tpu_torch.convert import (bigvgan_params_from_flax,
+                                                tree_to_flax,
+                                                unet_params_from_flax)
+    from diffbinaural_tpu_torch.core import checkpoint
+    from diffbinaural_tpu_torch.core.config import (VocoderConfig,
+                                                    load_hparams_from_json)
+
+    cfg = VocoderConfig.from_attrdict(load_hparams_from_json(GAN_CONFIG))
+    unet, unet_build_s = _timed(lambda: models.build_unet(seed=0))
+    voc, voc_build_s = _timed(lambda: models.build_vocoder(cfg, seed=1))
+    os.makedirs(os.path.join(workdir, "voc"))
+    shutil.copy(GAN_CONFIG, os.path.join(workdir, "voc", "config.json"))
+    paths = {"unet": os.path.join(workdir, "unet_best.pth"),
+             "generator": os.path.join(workdir, "voc", "g_00000001")}
+    out = {"phase": "checkpoint_roundtrip",
+           "build_s": {"unet": unet_build_s, "generator": voc_build_s}}
+    for name, model, wrap, to_sd, build in (
+            ("unet", unet, lambda tree: {"params": tree},
+             unet_params_from_flax, lambda: models.build_unet(seed=7)),
+            ("generator", voc, lambda tree: {"generator": {"params": tree}},
+             bigvgan_params_from_flax,
+             lambda: models.build_vocoder(cfg, seed=7))):
+        _, save_s = _timed(lambda: checkpoint.save_checkpoint(
+            paths[name], wrap(tree_to_flax(model.state_dict()))))
+        state, load_s = _timed(lambda: checkpoint.load_checkpoint(paths[name]))
+        if name == "generator":
+            state = state["generator"]
+        back = build()
+        _, to_card_s = _timed(lambda: back.load_state_dict(to_sd(state),
+                                                           strict=True))
+        n = _same_tensors(f"checkpoint_roundtrip {name}", back, model)
+        out[name] = {"bytes": os.path.getsize(paths[name]), "tensors": n,
+                     "save_s": save_s, "load_s": load_s,
+                     "to_card_s": to_card_s, "bit_for_bit": True}
+        del back, state
+
+    # the upstream names: a torch state dict in a pretrained directory
+    pre = os.path.join(workdir, "pretrained")
+    os.makedirs(pre)
+    shutil.copy(GAN_CONFIG, os.path.join(pre, "config.json"))
+    sd = checkpoint.export_bigvgan_to_torch(tree_to_flax(voc.state_dict()), cfg)
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in sd.items()},
+               os.path.join(pre, "bigvgan_generator.pt"))
+    (params, _), load_s = _timed(lambda: checkpoint.from_pretrained(pre))
+    back = models.build_vocoder(cfg, seed=8)
+    back.load_state_dict(bigvgan_params_from_flax(params), strict=True)
+    n = _same_tensors("checkpoint_roundtrip upstream names", back, voc)
+    out["generator_upstream_names"] = {
+        "bytes": os.path.getsize(os.path.join(pre, "bigvgan_generator.pt")),
+        "state_dict_keys": len(sd), "tensors": n, "load_s": load_s,
+        "bit_for_bit": True}
+    del back, params, sd
+    emit(out)
+    torch.cuda.empty_cache()
+    return {"paths": paths, "unet": unet, "voc": voc, "config": cfg}
+
+
+def phase_dpm_check() -> None:
+    """DPM-Solver++(2M), 3 steps, on one group of 8 full-width windows in
+    float32 (TF32 off): the path through the kernels against the same path
+    through the plain versions, under main_path_check's stage-1 tolerance
+    (2e-3 absolute on the clipped output)."""
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.diffusion import GaussianDiffusion
+
+    unet = build_unet(torch.float32, seed=0)
+    diffusion = GaussianDiffusion(image_size=WINDOW, timesteps=1000,
+                                  sampling_timesteps=3)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    mono = torch.rand((UNET_BATCH, 1, WINDOW, WINDOW), generator=gen,
+                      device="cuda") * 2 - 1
+    feats = torch.randn((UNET_BATCH, 512), generator=gen, device="cuda")
+    noise = torch.randn((UNET_BATCH, 2, WINDOW, WINDOW), generator=gen,
+                        device="cuda")
+    ops.reset_launch_counts()
+    pred_k = diffusion.dpm_sample(unet, (mono, feats), noise=noise)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    with plain_versions():
+        pred_p = diffusion.dpm_sample(unet, (mono, feats), noise=noise)
+    torch.cuda.synchronize()
+    if ops.launch_counts() != counts:
+        fail("plain_versions() launched a kernel")
+    if counts != launches(flash_sdpa=3 * ATTN_PER_STEP):
+        fail(f"dpm_check launch counts {counts}")
+    err = _compare("dpm_check", "stage1", pred_k, pred_p, 2e-3, False)
+    emit({"phase": "dpm_check", "dtype": "fp32", "tf32": False, "steps": 3,
+          "time_pairs": diffusion._dpm_time_pairs(3).tolist(),
+          "stage1_max_err": err, "stage1_tol": 2e-3, "launches": counts})
+    del unet
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def captured_writes(module):
+    """Record each waveform a CLI module hands to ``save_wav`` (a copy, the
+    host clock and the launch counts at that moment) and silence its
+    printing: a comparison aid of this script, the write itself goes on."""
+    import io
+
+    from diffbinaural_tpu_torch import ops
+
+    records, write = [], module.save_wav
+
+    def recording(path, audio, sr):
+        records.append({"wav": np.array(audio), "t": time.perf_counter(),
+                        "counts": ops.launch_counts()})
+        write(path, audio, sr)
+
+    module.save_wav = recording
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            yield records
+    finally:
+        module.save_wav = write
+
+
+def synthetic_clip(seed: int) -> np.ndarray:
+    """A 10 s, 22.05 kHz mono signal: three tones with a slow envelope plus
+    a little noise, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    tt = np.arange(int(CLIP_SECONDS * SR)) / SR
+    y = sum(a * np.sin(2 * np.pi * f * tt + p) for a, f, p in zip(
+        rng.uniform(0.05, 0.2, 3), rng.uniform(100, 4000, 3),
+        rng.uniform(0, 2 * np.pi, 3)))
+    y = y * (0.6 + 0.4 * np.sin(2 * np.pi * 0.3 * tt))
+    return (y + 0.01 * rng.standard_normal(tt.shape)).astype(np.float32)
+
+
+def _bit_for_bit(name, got, want) -> None:
+    if got.shape != want.shape:
+        fail(f"{name}: shape {got.shape} vs {want.shape}")
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    if err != 0.0:
+        fail(f"{name}: not bit for bit, max_abs_err {err:.3e}")
+
+
+def phase_serve_cli(ck: dict, workdir: str, trace_steps: int = 0) -> dict:
+    """``cli.generate_binaural.main([... "--bf16"])`` from the checkpoints of
+    ``checkpoint_roundtrip`` on SERVE_CLIPS seeded 10 s clips (861 frames,
+    padded to an 896-frame bucket: 22 windows, 3 groups of 8), first with
+    DDIM-25, then with ``--sampler dpm++ --ddim_steps 12``, under
+    ``deterministic_algorithms()``.  Per clip: the wav is (2, 861 * 256),
+    finite and not silent; K1 / K2 / K3 launch (300 | 144, 97, 12) times.
+    The first clip's waveform equals ``BinauralPipeline`` called directly on
+    the in-memory models (bfloat16 compute, the checkpoint's weights) with
+    the same padded mel and seed 13, bit for bit.  Seconds per clip: the
+    host clock between consecutive clips' writes, median of the 3 after the
+    first (which also loads the checkpoints and builds the models).  Then
+    the three vocoder CLIs on the first clip's stitched mels (as .npy):
+    ``inference_e2e`` against ``Vocoder.vocode_binaural``,
+    ``inference_binaural`` and ``inference_diffbinaural_mels`` against
+    ``BinauralBigVGAN``, each on the in-memory float32 generator, bit for
+    bit.  With ``trace_steps`` > 0 one clip of each sampler is also
+    traced (``BinauralPipeline`` on the padded mel)."""
+    import math
+    import os
+
+    from diffbinaural_tpu_torch import models, ops
+    from diffbinaural_tpu_torch.cli import (generate_binaural,
+                                            inference_binaural,
+                                            inference_diffbinaural_mels,
+                                            inference_e2e)
+    from diffbinaural_tpu_torch.data.audio_io import load_wav, save_wav
+    from diffbinaural_tpu_torch.infer.pipeline import BinauralPipeline
+    from diffbinaural_tpu_torch.infer.vocoder import Vocoder
+    from diffbinaural_tpu_torch.models import BinauralBigVGAN
+    from diffbinaural_tpu_torch.signal.stft import mel_spectrogram
+
+    in_dir = os.path.join(workdir, "clips")
+    for i in range(SERVE_CLIPS):
+        save_wav(os.path.join(in_dir, f"clip{i}.wav"), synthetic_clip(10 + i),
+                 SR)
+    audio, _ = load_wav(os.path.join(in_dir, "clip0.wav"))
+    frames = len(audio) // HOP
+    bucket = -(-frames // SERVE_BUCKET) * SERVE_BUCKET
+    with torch.inference_mode():
+        mel = mel_spectrogram(torch.from_numpy(audio[None, : frames * HOP])
+                              .cuda(), 1024, 80, SR, HOP, 1024, 0.0, None)
+        mel = F.pad(mel[..., :frames], (0, bucket - frames),
+                    value=math.log(1e-5))
+    unet16 = models.build_unet(dtype=torch.bfloat16, seed=99)
+    unet16.load_state_dict(ck["unet"].state_dict())
+    voc16 = models.build_vocoder(ck["config"], dtype=torch.bfloat16, seed=99)
+    voc16.load_state_dict(ck["voc"].state_dict())
+    feats = np.zeros((512,), np.float32)
+
+    out = {"phase": "serve_cli", "clip_frames": frames, "bucket": bucket,
+           "clips": SERVE_CLIPS, "dtype": "bf16",
+           "deterministic_algorithms": True}
+    for sampler, steps in SERVE_SAMPLERS:
+        args = ["--input_wav", in_dir,
+                "--output_dir", os.path.join(workdir, "out_" + sampler),
+                "--weights_unet", ck["paths"]["unet"],
+                "--vocoder_checkpoint", ck["paths"]["generator"],
+                "--ddim_steps", str(steps), "--sampler", sampler, "--bf16"]
+        with deterministic_algorithms(), captured_writes(
+                generate_binaural) as records:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            generate_binaural.main(args)
+            pipe = BinauralPipeline(unet16, voc16, bucket,
+                                    unet_batch=UNET_BATCH,
+                                    sampling_timesteps=steps, sampler=sampler)
+            direct = pipe(mel, feats)[:, : frames * HOP].float().cpu().numpy()
+        if len(records) != SERVE_CLIPS:
+            fail(f"serve_cli {sampler}: {len(records)} wavs written")
+        expected = launches(flash_sdpa=pipe.n_batches * steps * ATTN_PER_STEP,
+                            fused_alias_free_snake=ACT_PER_PASS,
+                            fused_snake_conv=FUSED_PER_PASS)
+        before = launches()
+        for i, r in enumerate(records):
+            wav = r["wav"]
+            per_clip = {k: r["counts"][k] - before[k] for k in before}
+            before = r["counts"]
+            if wav.shape != (2, frames * HOP) or not np.isfinite(wav).all():
+                fail(f"serve_cli {sampler} clip {i}: shape {wav.shape} or "
+                     "non-finite samples")
+            if np.abs(wav).max() < 2 / 32767:  # below 2 steps of the int16 file
+                fail(f"serve_cli {sampler} clip {i}: silent")
+            if per_clip != expected:
+                fail(f"serve_cli {sampler} clip {i}: launch counts {per_clip} "
+                     f"!= {expected}")
+        _bit_for_bit(f"serve_cli {sampler}: CLI against BinauralPipeline",
+                     records[0]["wav"], direct)
+        runs = [records[i]["t"] - records[i - 1]["t"]
+                for i in range(1, SERVE_CLIPS)]
+        out[sampler] = {
+            "steps": steps, "windows": pipe.n_windows, "groups": pipe.n_batches,
+            "first_clip_s": records[0]["t"] - t0,
+            "seconds_per_clip": statistics.median(runs),
+            "seconds_per_clip_runs": runs,
+            "launches_per_clip": {k: v for k, v in expected.items() if v},
+            "abs_max": float(np.abs(records[0]["wav"]).max()),
+            "equals_pipeline": "bit for bit"}
+        if trace_steps > 0:
+            emit(trace(f"clip_{sampler}", lambda: pipe(mel, feats), 1))
+        if sampler == "ddim":
+            stitched = pipe.stitched_mel(mel, feats)[..., :frames]
+    del unet16, voc16
+
+    # the three vocoder CLIs on the DDIM clip's stitched mels, each against
+    # the module it drives on the in-memory float32 generator
+    left, right = (stitched[i].float().cpu().numpy() for i in range(2))
+    mels = {side: os.path.join(workdir, "mels", side)
+            for side in ("left", "right", "pairs")}
+    for side, m in (("left", left), ("right", right)):
+        os.makedirs(mels[side])
+        np.save(os.path.join(mels[side], "clip0.npy"), m)
+        os.makedirs(mels["pairs"], exist_ok=True)
+        np.save(os.path.join(mels["pairs"], f"clip0_{side}.npy"), m)
+    binaural = BinauralBigVGAN(ck["config"])
+    binaural.generator = ck["voc"]
+    binaural.eval()
+
+    def binaural_wav():
+        with torch.inference_mode():
+            y = binaural(torch.from_numpy(left[None]).cuda(),
+                         torch.from_numpy(right[None]).cuda())
+        return y[0].float().cpu().numpy()
+
+    lr_dirs = ["--input_mels_left_dir", mels["left"],
+               "--input_mels_right_dir", mels["right"]]
+    vocoder_clis = (  # name, module, its inputs, the module it drives, passes
+        ("inference_e2e", inference_e2e, lr_dirs,
+         lambda: Vocoder(ck["config"], model=ck["voc"]).vocode_binaural(
+             left, right), 2),
+        ("inference_binaural", inference_binaural,
+         ["--input_mels_dir", mels["pairs"]], binaural_wav, 1),
+        ("inference_diffbinaural_mels", inference_diffbinaural_mels, lr_dirs,
+         lambda: np.clip(binaural_wav(), -1.0, 1.0), 1),
+    )
+    for name, module, inputs, direct_fn, passes in vocoder_clis:
+        args = inputs + ["--checkpoint_file", ck["paths"]["generator"],
+                         "--output_dir", os.path.join(workdir, "out_" + name),
+                         "--use_cuda_kernel"]
+        with deterministic_algorithms(), captured_writes(module) as records:
+            ops.reset_launch_counts()
+            _, seconds = _timed(lambda: module.main(args))
+            counts = ops.launch_counts()
+            want = direct_fn()
+        if len(records) != 1:
+            fail(f"serve_cli {name}: {len(records)} wavs written")
+        _bit_for_bit(f"serve_cli {name} against the module it drives",
+                     records[0]["wav"], want)
+        if counts != launches(fused_alias_free_snake=passes * ACT_PER_PASS,
+                              fused_snake_conv=passes * FUSED_PER_PASS):
+            fail(f"serve_cli {name} launch counts {counts}")
+        out[name] = {"seconds": seconds, "dtype": "fp32",
+                     "launches": {k: v for k, v in counts.items() if v},
+                     "equals_module": "bit for bit"}
+    del binaural
+    emit(out)
+    torch.cuda.empty_cache()
+    return out
+
+
 # ----------------------------------------------------------- training path
 
 
@@ -1691,8 +2041,9 @@ def kernels_line(cases, counts) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", type=int, default=0, metavar="STEPS",
-                    help="also trace STEPS UNet calls, one vocoder pass and "
-                         "up to 3 steps of each trainer with torch.profiler")
+                    help="also trace STEPS UNet calls, one vocoder pass, one "
+                         "clip with each sampler and up to 3 steps of each "
+                         "trainer with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures on the card only")
@@ -1705,6 +2056,12 @@ def main() -> None:
     cases = phase_kernels()
     phase_main_path_check()
     main_out = phase_main_path(args.trace)
+    with tempfile.TemporaryDirectory() as workdir:
+        ck = phase_checkpoint_roundtrip(workdir)
+        phase_dpm_check()
+        phase_serve_cli(ck, workdir, args.trace)
+        del ck
+    torch.cuda.empty_cache()
     phase_grad_flow()
     phase_train_check()
     train_out = phase_train_path(args.trace)

@@ -1,7 +1,9 @@
 """DDPM/DDIM engine — counterpart of
 ``diffbinaural_tpu/diffusion/gaussian.py``: the training loss ``p_losses``
 (with the noised-mix condition, CFG dropout and the p2 weight), the DDIM
-sampler, the ancestral sampler ``p_sample_loop`` and ``interpolate``.
+sampler on the uniform or a DPM time grid, DPM-Solver++(2M)
+(``dpm_sample``), the ancestral sampler ``p_sample_loop`` and
+``interpolate``.
 
 The model is passed as a callable ``model_fn(x, t, condition) -> prediction``
 with condition = (mix, visual_feat, mix_t).  Sampling is a Python loop under
@@ -10,7 +12,9 @@ from an explicit ``torch.Generator`` or from tensors handed in by the caller
 (``t=``, ``noise=``, ``drop=``, ``noises=``): the two frameworks' generators
 cannot agree, so the tests inject the JAX package's draws that way.
 
-Not ported yet: DPM-Solver++ and the non-uniform time grids.
+The samplers' state (x_t, the noised mix, x0 predictions) stays float32
+whatever the model computes in; the time grids and DPM coefficients are
+numpy, computed as the JAX package computes them.
 """
 
 from __future__ import annotations
@@ -276,8 +280,9 @@ class GaussianDiffusion:
         noise: Optional[torch.Tensor] = None,
         return_all_timesteps: bool = False,
         sampling_timesteps: Optional[int] = None,
+        time_grid: str = "uniform",
     ):
-        """DDIM sampling on the uniform strided grid.
+        """DDIM sampling.
 
         condition = (mix, visual_feature) with mix (B, 1, H, W).  The state
         ``img`` and the noised-mix condition ``mix_t`` are both (B, 2, H, W)
@@ -285,7 +290,12 @@ class GaussianDiffusion:
         1-channel mix at every step.  ``noise`` is the initial x_T
         (B, 2, H, W); when absent it is drawn from ``generator``.  On the
         last step ``img`` becomes the predicted x_0 and ``mix_t`` is left
-        untouched."""
+        untouched.
+
+        ``time_grid="uniform"`` is the reference's strided grid (last model
+        call at t ~ T/steps); any :meth:`_dpm_time_pairs` grid name
+        (``"power2.5"``, ``"lambda"``, ``"karras7"`` ...) runs the same
+        update on that grid, whose last model call is at t = 0."""
         if sampling_timesteps is None:
             sampling_timesteps = self.sampling_timesteps
         eta = self.ddim_sampling_eta
@@ -307,7 +317,11 @@ class GaussianDiffusion:
         mix_t = img + mix
         imgs = [img]
 
-        for time, time_next in self._ddim_time_pairs(sampling_timesteps).tolist():
+        if time_grid == "uniform":
+            pairs = self._ddim_time_pairs(sampling_timesteps)
+        else:
+            pairs = self._dpm_time_pairs(sampling_timesteps, time_grid)
+        for time, time_next in pairs.tolist():
             time_cond = torch.full((batch,), time, dtype=torch.int32,
                                    device=mix.device)
             pred_noise, x_start = self.model_predictions(
@@ -332,6 +346,153 @@ class GaussianDiffusion:
 
         if return_all_timesteps:
             # (B, steps+1, C, H, W) with the initial noise first
+            return self.unnormalize(torch.stack(imgs, dim=1))
+        return self.unnormalize(img)
+
+    def _dpm_time_pairs(self, sampling_timesteps: int,
+                        time_grid: str = "power2.5") -> np.ndarray:
+        """``sampling_timesteps`` model-call times from T-1 down to 0, then
+        the terminal (0 -> -1) pair, as (steps, 2) int32 pairs.
+
+        Grids, each rounded to a strictly decreasing integer grid:
+          * ``"power{p}"``: t_i = (T-1)(1-s_i)^p, s uniform on [0, 1]
+            (p = 2.5 when omitted; ``"power1"`` is uniform in t);
+          * ``"lambda"``: uniform in lambda = log(alpha/sigma), nearest t;
+          * ``"karras{rho}"``: uniform in sigma^(1/rho), sigma =
+            sqrt((1 - abar)/abar), nearest t (rho = 7 when omitted)."""
+        if not 1 <= sampling_timesteps <= self.num_timesteps:
+            raise ValueError(f"sampling_timesteps {sampling_timesteps} not in "
+                             f"[1, {self.num_timesteps}]")
+        T = self.num_timesteps
+        if sampling_timesteps == 1:
+            times = [T - 1]
+        else:
+            s = np.linspace(0.0, 1.0, sampling_timesteps)
+            ac = self.schedule.alphas_cumprod.detach().cpu().numpy().astype(
+                np.float64)
+            if time_grid.startswith("power"):
+                p = float(time_grid[len("power"):] or 2.5)
+                ts_f = (T - 1) * (1.0 - s) ** p
+            elif time_grid == "lambda":
+                lam = 0.5 * np.log(ac / (1.0 - ac))
+                lam_grid = lam[T - 1] + s * (lam[0] - lam[T - 1])
+                ts_f = np.array([np.abs(lam - g).argmin() for g in lam_grid],
+                                float)
+            elif time_grid.startswith("karras"):
+                rho = float(time_grid[len("karras"):] or 7.0)
+                sig = np.sqrt((1.0 - ac) / ac)
+                sig_grid = (
+                    sig[T - 1] ** (1 / rho)
+                    + s * (sig[0] ** (1 / rho) - sig[T - 1] ** (1 / rho))
+                ) ** rho
+                ts_f = np.array([np.abs(sig - g).argmin() for g in sig_grid],
+                                float)
+            else:
+                raise ValueError(f"unknown time_grid {time_grid!r}")
+            times = np.round(ts_f).astype(int).tolist()
+            # strictly decreasing: clamp forward, then push entries that
+            # rounded together near t = 0 back up from the end
+            for i in range(1, len(times)):
+                times[i] = min(times[i], times[i - 1] - 1)
+            times[-1] = max(times[-1], 0)
+            for i in range(len(times) - 2, -1, -1):
+                times[i] = max(times[i], times[i + 1] + 1)
+            if times[0] > T - 1:
+                raise ValueError("sampling_timesteps too large for schedule")
+        times = times + [-1]
+        return np.asarray(list(zip(times[:-1], times[1:])), dtype=np.int32)
+
+    def _dpm_coeffs(self, time_pairs: np.ndarray) -> np.ndarray:
+        """Per-step coefficients of DPM-Solver++(2M), (steps, 6) float32
+        (computed in float64).  Row i is (k_x, k_D, c_prev, m_a, m_s, last):
+
+            x_{i+1}    = k_x * x_i + k_D * D_i
+            D_i        = (1 - c_prev) * x0_i + c_prev * x0_{i-1}
+            mix_t_next = m_a * mix + m_s * eps_i       (unless last)
+
+        with h_i = lambda(t_next) - lambda(t_cur), k_x = sigma_next /
+        sigma_cur, k_D = -alpha_next * expm1(-h_i), c_prev = -h_i /
+        (2 h_{i-1}) (0 on the first step).  The terminal row (t_next < 0)
+        is (0, 1, 0, 0, 0, 1): x <- x0, as DDIM's last step."""
+        ac = self.schedule.alphas_cumprod.detach().cpu().numpy().astype(
+            np.float64)
+        alpha, sigma = np.sqrt(ac), np.sqrt(1.0 - ac)
+        lam = np.log(alpha / sigma)
+        rows = np.zeros((len(time_pairs), 6), np.float64)
+        h_prev = None
+        for i, (tc, tn) in enumerate(time_pairs):
+            if tn < 0:
+                rows[i] = (0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+                continue
+            h = lam[tn] - lam[tc]
+            c_prev = 0.0 if h_prev is None else -h / (2.0 * h_prev)
+            rows[i] = (sigma[tn] / sigma[tc], -alpha[tn] * np.expm1(-h),
+                       c_prev, alpha[tn], sigma[tn], 0.0)
+            h_prev = h
+        return rows.astype(np.float32)
+
+    @torch.inference_mode()
+    def dpm_sample(
+        self,
+        model_fn,
+        condition: Sequence[torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+        return_all_timesteps: bool = False,
+        sampling_timesteps: Optional[int] = None,
+        time_grid: str = "power2.5",
+    ):
+        """DPM-Solver++(2M): the second-order multistep solver (data
+        prediction) of the probability-flow ODE that eta = 0 DDIM
+        integrates, on a :meth:`_dpm_time_pairs` grid.  Deterministic.
+
+        The condition contract is :meth:`ddim_sample`'s: the model's
+        condition[0] stays the 1-channel mix, and the noised mix is
+        refreshed every step but the last to the next noise level with the
+        current noise prediction.  ``noise`` / ``generator`` give the
+        initial x_T as in :meth:`ddim_sample` (the JAX package draws the
+        same x_T in both samplers for one key)."""
+        if sampling_timesteps is None:
+            sampling_timesteps = self.sampling_timesteps
+
+        mono_mix = condition[0].detach()
+        mix = mono_mix.repeat(1, 2, 1, 1)
+        visual_feature = condition[1]
+        batch = mix.shape[0]
+
+        img = (torch.randn(mix.shape, generator=generator, dtype=mix.dtype,
+                           device=mix.device)
+               if noise is None else noise.to(mix))
+        if img.shape != mix.shape:
+            raise ValueError(f"noise must be {tuple(mix.shape)}, got "
+                             f"{tuple(img.shape)}")
+        mix_t = img + mix
+        prev_x0 = torch.zeros_like(img)
+        imgs = [img]
+
+        pairs = self._dpm_time_pairs(sampling_timesteps, time_grid)
+        coeffs = self._dpm_coeffs(pairs)
+        one = np.float32(1.0)
+        for (time, _), row in zip(pairs.tolist(), coeffs):
+            # float32 coefficients as Python floats (exact): 1 - c_prev is
+            # formed in float32, as the JAX step forms it
+            k_x, k_d, c_prev, m_a, m_s, last = (float(v) for v in row)
+            keep = float(one - row[2])
+            time_cond = torch.full((batch,), time, dtype=torch.int32,
+                                   device=mix.device)
+            pred_noise, x_start = self.model_predictions(
+                model_fn, img, time_cond, (mono_mix, visual_feature, mix_t),
+                clip_x_start=True,
+            )
+            d = keep * x_start + c_prev * prev_x0
+            img = k_x * img + k_d * d
+            if not last:
+                mix_t = m_a * mix + m_s * pred_noise
+            prev_x0 = x_start
+            if return_all_timesteps:
+                imgs.append(img)
+
+        if return_all_timesteps:
             return self.unnormalize(torch.stack(imgs, dim=1))
         return self.unnormalize(img)
 

@@ -1,10 +1,10 @@
 """Whole-clip inference: mono log-mel -> stereo waveform.  Counterpart of
 ``diffbinaural_tpu/infer/pipeline.py``.
 
-Window extraction, DDIM over the window groups, the
-denormalise/crop/overlap-average stitch and the BigVGAN vocoder all run on
-one device without a host round trip in between; windows go through the
-UNet in groups of ``unet_batch``.
+Window extraction, the sampler (DDIM or DPM-Solver++(2M)) over the window
+groups, the denormalise/crop/overlap-average stitch and the BigVGAN vocoder
+all run on one device without a host round trip in between; windows go
+through the UNet in groups of ``unet_batch``.
 
 The clip geometry (total frames, window/stride/crop, grouping) is fixed per
 pipeline instance.
@@ -26,6 +26,13 @@ from .stage1 import (
     normalize_mel,
     window_starts,
 )
+
+
+def _float32(x) -> torch.Tensor:
+    """A float32 tensor of an array or a tensor (on its own device)."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    return torch.as_tensor(x, dtype=torch.float32)
 
 
 class BinauralPipeline:
@@ -50,11 +57,19 @@ class BinauralPipeline:
         unet_batch: int = 8,
         sampling_timesteps: int = 25,
         sampler: str = "ddim",
+        time_grid: Optional[str] = None,
         diffusion: Optional[GaussianDiffusion] = None,
         device=None,
     ):
-        if sampler != "ddim":
-            raise ValueError(f"unknown sampler {sampler!r} (ported: 'ddim')")
+        """``sampler``: ``"ddim"`` (the reference's) or ``"dpm++"``
+        (DPM-Solver++(2M)).  ``time_grid`` picks the discretisation
+        (``"uniform"``, ``"powerP"``, ``"lambda"``, ``"karrasR"``, see
+        ``GaussianDiffusion._dpm_time_pairs``); None keeps each sampler's
+        default: uniform for DDIM, power2.5 for DPM++."""
+        if sampler not in ("ddim", "dpm++"):
+            raise ValueError(f"unknown sampler {sampler!r}")
+        self.sampler = sampler
+        self.time_grid = time_grid
         self.device = resolve_device(device)
         self.unet = unet
         self.vocoder = vocoder
@@ -115,7 +130,7 @@ class BinauralPipeline:
         ``noise``: optional (n_batches, unet_batch, 2, M, window) initial
         x_T of every group; otherwise each group draws from ``generator``
         (seed 13 when absent)."""
-        mono = torch.as_tensor(np.asarray(mono_mel_full), dtype=torch.float32)
+        mono = _float32(mono_mel_full)
         if mono.shape[2] != self.total_frames:
             # a mismatched clip would stitch predictions at wrong positions
             raise ValueError(
@@ -125,7 +140,7 @@ class BinauralPipeline:
         if mono.shape[2] < self.window:  # pad short clips
             mono = torch.nn.functional.pad(
                 mono, (0, self.window - mono.shape[2]), value=MEL_MIN)
-        feats = torch.as_tensor(np.asarray(visual_feats), dtype=torch.float32)
+        feats = _float32(visual_feats)
         if feats.dim() == 1:
             feats = feats.expand(self.n_slots, feats.shape[0])
         elif feats.shape[0] == self.n_slots:
@@ -147,10 +162,14 @@ class BinauralPipeline:
         group = (self.n_batches, self.unet_batch)
         wins_g = wins.reshape(group + tuple(wins.shape[1:]))
         feat_g = feats.reshape(group + (-1,))
+        sample = (self.diffusion.dpm_sample if self.sampler == "dpm++"
+                  else self.diffusion.ddim_sample)
+        grid = {} if self.time_grid is None else {"time_grid": self.time_grid}
         preds = [
-            self.diffusion.ddim_sample(
+            sample(
                 self.unet, (wins_g[i], feat_g[i]), generator=generator,
                 noise=None if noise is None else torch.as_tensor(noise[i]),
+                **grid,
             )
             for i in range(self.n_batches)
         ]
@@ -161,7 +180,8 @@ class BinauralPipeline:
                  generator: Optional[torch.Generator] = None,
                  noise=None) -> torch.Tensor:
         """mono_mel_full: (1, num_mels, T) raw ln-mels; visual_feats:
-        (n_windows, 512) per-window conditioning or (512,) shared.  Returns
+        (n_windows, 512) per-window conditioning or (512,) shared; arrays,
+        or tensors on any device.  Returns
         the generator's output on the stitched binaural mels, (2, T*hop),
         on ``device``."""
         mel = self.stitched_mel(mono_mel_full, visual_feats, generator, noise)

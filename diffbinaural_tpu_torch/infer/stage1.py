@@ -3,7 +3,7 @@ Counterpart of ``diffbinaural_tpu/infer/stage1.py``.
 
   * normalisation: clamp ln-mels to [-12, 2.5] then affine to [-1, 1];
     inverted after sampling
-  * ``Stage1Sampler.sample``: DDIM with the mono mel as the model's
+  * ``Stage1Sampler.sample``: DDIM or DPM++ with the mono mel as the model's
     condition and a noised two-channel mix carried per step
   * ``generate_clip``: full-clip windowed generation with 8-frame edge
     crops and overlap averaging, stitched on the host
@@ -50,8 +50,11 @@ class Stage1Sampler:
         sampler: str = "ddim",
         device=None,
     ):
-        if sampler != "ddim":
-            raise ValueError(f"unknown sampler {sampler!r} (ported: 'ddim')")
+        """``sampler``: ``"ddim"`` (the reference's, 25 steps) or
+        ``"dpm++"`` (DPM-Solver++(2M); pair it with about 12 steps)."""
+        if sampler not in ("ddim", "dpm++"):
+            raise ValueError(f"unknown sampler {sampler!r}")
+        self.sampler = sampler
         self.device = resolve_device(device)
         self.diffusion = diffusion or GaussianDiffusion(
             image_size=80,
@@ -74,10 +77,10 @@ class Stage1Sampler:
             generator = torch.Generator(device=self.device).manual_seed(13)
         mono = torch.as_tensor(mono_mel, dtype=torch.float32).to(self.device)
         feat = torch.as_tensor(visual_feat, dtype=torch.float32).to(self.device)
-        pred = self.diffusion.ddim_sample(
-            self.model, (normalize_mel(mono), feat), generator=generator,
-            noise=noise,
-        )
+        sample = (self.diffusion.dpm_sample if self.sampler == "dpm++"
+                  else self.diffusion.ddim_sample)
+        pred = sample(self.model, (normalize_mel(mono), feat),
+                      generator=generator, noise=noise)
         return denormalize_mel(pred)
 
 

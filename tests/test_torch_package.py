@@ -45,14 +45,17 @@ def test_every_module_imports_without_jax():
                 "data", "data.audio_io", "signal.stft", "signal.cqt",
                 "losses", "losses.gan", "losses.multiscale_mel",
                 "losses.silence", "losses.binaural_enhanced",
-                "models.discriminators"):
+                "models.discriminators", "core.serialization",
+                "core.checkpoint", "cli", "cli.generate_binaural",
+                "cli.inference_e2e", "cli.inference_binaural",
+                "cli.inference_diffbinaural_mels"):
         assert f"diffbinaural_tpu_torch.{sub}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'diffbinaural_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'diffbinaural_tpu')]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
         "print('imported', len(sys.modules))\n"
@@ -70,7 +73,7 @@ def test_sources_name_no_jax_import():
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1].split(".")[0]
                 assert mod not in ("jax", "jaxlib", "flax", "optax",
-                                   "diffbinaural_tpu"), (path, line)
+                                   "msgpack", "diffbinaural_tpu"), (path, line)
 
 
 def test_importing_builds_and_loads_nothing():
@@ -104,7 +107,9 @@ def _no_card():
 @pytest.mark.parametrize("entry", ["build_unet", "build_vocoder", "pipeline",
                                    "diffusion", "sampler", "vocoder",
                                    "train_step", "build_discriminators",
-                                   "stage2_train_step"])
+                                   "stage2_train_step", "generate_binaural",
+                                   "inference_e2e", "inference_binaural",
+                                   "inference_diffbinaural_mels"])
 def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
     _no_card()
     from diffbinaural_tpu_torch.diffusion import GaussianDiffusion
@@ -114,6 +119,10 @@ def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
                                                build_unet, build_vocoder)
     from diffbinaural_tpu_torch.train import (make_stage1_train_step,
                                               make_stage2_train_step)
+    from diffbinaural_tpu_torch.cli import (generate_binaural,
+                                            inference_binaural,
+                                            inference_diffbinaural_mels,
+                                            inference_e2e)
 
     calls = {
         "build_unet": lambda: build_unet(UnetConfig(dim=16)),
@@ -128,6 +137,17 @@ def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
         "stage2_train_step": lambda: make_stage2_train_step(
             *(torch.nn.Linear(2, 2) for _ in range(3)), mel_fn=None,
             multiscale_mel_loss=lambda y, yh: 0.0),
+        # the CLIs resolve the device before they read a file
+        "generate_binaural": lambda: generate_binaural.main([
+            "--input_wav", "x.wav", "--weights_unet", "u",
+            "--vocoder_checkpoint", "g"]),
+        "inference_e2e": lambda: inference_e2e.main(["--checkpoint_file",
+                                                     "g"]),
+        "inference_binaural": lambda: inference_binaural.main(
+            ["--checkpoint_file", "g"]),
+        "inference_diffbinaural_mels": lambda: inference_diffbinaural_mels.main(
+            ["--input_mels_left_dir", "l", "--input_mels_right_dir", "r",
+             "--checkpoint_file", "g"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

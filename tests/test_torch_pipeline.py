@@ -181,9 +181,13 @@ def test_wrong_feature_rows_raises():
         pipe(np.zeros((1, 4, 200), np.float32), np.zeros((5, 512), np.float32))
 
 
-def test_unported_sampler_raises():
-    with pytest.raises(ValueError, match="sampler"):
-        BinauralPipeline(None, None, 200, sampler="dpm++", device="cpu")
+def test_unknown_sampler_raises():
+    with pytest.raises(ValueError, match="unknown sampler 'heun'"):
+        BinauralPipeline(None, None, 200, sampler="heun", device="cpu")
+    with pytest.raises(ValueError, match="unknown sampler 'heun'"):
+        Stage1Sampler(None, sampler="heun", device="cpu")
+    pipe = BinauralPipeline(None, None, 200, sampler="dpm++", device="cpu")
+    assert (pipe.sampler, pipe.time_grid) == ("dpm++", None)
 
 
 @pytest.mark.parametrize("total", [30, 80, 81, 200, 861, 1000])
