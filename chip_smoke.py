@@ -23,6 +23,13 @@ weights from a seed:
     through the kernels against the same through the plain versions
     (float32, batch 2), then optimiser steps in bfloat16 at batch 16 on a
     batch made by the port's mel frontend from a synthetic stereo signal;
+  * the visual conditioning path — the six frame encoders (ViT-B/32 towers
+    and ResNet-18, float32) on the card against the same weights on the
+    CPU, one live-visual stage-1 step through the kernels against the
+    plain versions (float32, batch 2), then optimiser steps with
+    ``ClipPos2D`` and the bfloat16 UNet at batch 16 (64 CLIP images per
+    step), and a 10 s clip generated from per-window frames through
+    ``cli.common.dump_clip_mels``;
   * stage-2 GAN training at the production configuration
     (``configs/bigvgan_binaural_22khz_80band_256x.json``: the full-width
     generator, MPD and sub-band CQTD) — one D+G step through the kernels
@@ -37,8 +44,9 @@ result.
     python3 chip_smoke.py --trace 10
 
 also traces 10 UNet calls, one vocoder pass, one clip with each sampler, 3
-stage-1 and 3 stage-2 train steps with ``torch.profiler`` and prints, for
-each, the wall time, the summed device time, the device's busy share and the
+stage-1 steps with features and 3 with the live encoder (and the tower's
+forward and the encoder's forward + backward alone), and 3 stage-2 train
+steps with ``torch.profiler`` and prints, for each, the wall time, the summed device time, the device's busy share and the
 ten kernels with the most device time.
 
 Float32 comparisons run with TF32 switched off for both matmuls and cuDNN
@@ -59,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import statistics
 import subprocess
@@ -1583,13 +1592,63 @@ def synthetic_batch(batch: int, seed: int) -> dict:
 TRAIN_CHECK_TOL, TRAIN_CHECK_FLOOR = 2e-3, 1e-6
 
 
+def step_against_plain(phase: str, run, expected: dict):
+    """One train step through the kernels against the same through the
+    plain versions: ``run()`` -> (loss, pre-clip norm, {name: gradient})
+    is called once each way; the kernels' launches must be ``expected``,
+    the loss within 1e-5, the norm within 1e-4 and every gradient within
+    ``TRAIN_CHECK_TOL`` of its own scale plus ``TRAIN_CHECK_FLOOR`` of the
+    largest.  Returns (the fields of the phase's line, the plain
+    gradients)."""
+    from diffbinaural_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    loss_k, norm_k, grads_k = run()
+    counts = ops.launch_counts()
+    with plain_versions():
+        loss_p, norm_p, grads_p = run()
+    if ops.launch_counts() != counts:
+        fail(f"{phase}: plain_versions() launched a kernel")
+    if counts != expected:
+        fail(f"{phase}: launch counts {counts} != {expected}")
+    if not (np.isfinite(loss_k) and np.isfinite(norm_k)):
+        fail(f"{phase}: loss {loss_k}, grad_norm {norm_k}")
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
+        fail(f"{phase}: loss {loss_k} vs {loss_p} through the plain versions")
+    if abs(norm_k - norm_p) > 1e-4 * norm_p:
+        fail(f"{phase}: grad_norm {norm_k} vs {norm_p}")
+    top = max(g.abs().max().item() for g in grads_p.values())
+    worst, worst_name, n_zero = 0.0, "", 0
+    for name, want in grads_p.items():
+        got = grads_k[name]
+        if not torch.isfinite(got).all():
+            fail(f"{phase}: non-finite gradient of {name}")
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if err > TRAIN_CHECK_TOL * scale + TRAIN_CHECK_FLOOR * top:
+            fail(f"{phase}: gradient of {name}: max error {err:.3e} at "
+                 f"scale {scale:.3e} (largest gradient {top:.3e})")
+        n_zero += scale <= 1e-5 * top
+        if scale > 1e-5 * top and err / scale > worst:
+            worst, worst_name = err / scale, name
+    return {"loss": loss_k, "loss_plain": loss_p, "loss_rel_diff":
+                abs(loss_k - loss_p) / abs(loss_p), "loss_tol": 1e-5,
+            "grad_norm": norm_k, "grad_norm_plain": norm_p,
+            "parameters": len(grads_p),
+            "worst_grad_err_of_own_scale": worst, "worst_grad": worst_name,
+            "grad_tol_of_own_scale": TRAIN_CHECK_TOL,
+            "grad_floor_of_largest_scale": TRAIN_CHECK_FLOOR,
+            "largest_grad_scale": top,
+            "grads_below_1e-5_of_largest": int(n_zero),
+            "launches": counts}, grads_p
+
+
 def phase_train_check() -> None:
     """One stage-1 train step at full width in float32 (TF32 off), batch 2,
     one injected (t, noise, drop): loss, pre-clip gradient norm and every
     parameter's gradient through the kernels against the same through the
     plain versions.  The step runs with ``lr_scale`` 0 and no norm clip, so
     the parameters stay and the gradients are left as autograd made them."""
-    from diffbinaural_tpu_torch import ops
     from diffbinaural_tpu_torch.train import make_stage1_train_step
 
     b = 2
@@ -1610,71 +1669,33 @@ def phase_train_check() -> None:
         grads = {k: p.grad.clone() for k, p in unet.named_parameters()}
         return metrics["loss"].item(), metrics["grad_norm"].item(), grads
 
-    ops.reset_launch_counts()
-    loss_k, norm_k, grads_k = run()
-    counts = ops.launch_counts()
-    with plain_versions():
-        loss_p, norm_p, grads_p = run()
-    if ops.launch_counts() != counts:
-        fail("train_check: plain_versions() launched a kernel")
-    expected = launches(flash_sdpa_with_lse=ATTN_PER_STEP,
-                        flash_sdpa_backward=ATTN_PER_STEP)
-    if counts != expected:
-        fail(f"train_check: launch counts {counts} != {expected}")
-    if not (np.isfinite(loss_k) and np.isfinite(norm_k)):
-        fail(f"train_check: loss {loss_k}, grad_norm {norm_k}")
-    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
-        fail(f"train_check: loss {loss_k} vs {loss_p} through the plain versions")
-    if abs(norm_k - norm_p) > 1e-4 * norm_p:
-        fail(f"train_check: grad_norm {norm_k} vs {norm_p}")
-    top = max(g.abs().max().item() for g in grads_p.values())
-    worst, worst_name, n_zero = 0.0, "", 0
-    for name, want in grads_p.items():
-        got = grads_k[name]
-        if not torch.isfinite(got).all():
-            fail(f"train_check: non-finite gradient of {name}")
-        scale = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        if err > TRAIN_CHECK_TOL * scale + TRAIN_CHECK_FLOOR * top:
-            fail(f"train_check: gradient of {name}: max error {err:.3e} at "
-                 f"scale {scale:.3e} (largest gradient {top:.3e})")
-        n_zero += scale <= 1e-5 * top
-        if scale > 1e-5 * top and err / scale > worst:
-            worst, worst_name = err / scale, name
+    fields, _ = step_against_plain(
+        "train_check", run, launches(flash_sdpa_with_lse=ATTN_PER_STEP,
+                                     flash_sdpa_backward=ATTN_PER_STEP))
     emit({"phase": "train_check", "dtype": "fp32", "tf32": False, "batch": b,
-          "loss": loss_k, "loss_plain": loss_p, "loss_rel_diff":
-              abs(loss_k - loss_p) / abs(loss_p), "loss_tol": 1e-5,
-          "grad_norm": norm_k, "grad_norm_plain": norm_p,
-          "parameters": len(grads_p),
-          "worst_grad_err_of_own_scale": worst, "worst_grad": worst_name,
-          "grad_tol_of_own_scale": TRAIN_CHECK_TOL,
-          "grad_floor_of_largest_scale": TRAIN_CHECK_FLOOR,
-          "largest_grad_scale": top,
-          "grads_below_1e-5_of_largest": int(n_zero), "launches": counts})
-    del unet, state, grads_k, grads_p
+          **fields})
+    del unet, state
     torch.cuda.empty_cache()
 
 
-def phase_train_path(trace_steps: int = 0) -> dict:
-    """Optimiser steps of the stage-1 trainer at full width in bfloat16,
-    batch 16, through the entry point a user calls
-    (``make_stage1_train_step``): one warm-up step with draws from the
-    generator, then ``TRAIN_STEPS`` timed steps with one fixed (t, noise,
-    drop), so that the losses are those of one objective and must fall."""
-    from diffbinaural_tpu_torch import ops
-    from diffbinaural_tpu_torch.train import (TrainingStabilizer,
-                                              make_stage1_train_step)
-
-    b = TRAIN_BATCH
-    unet = build_unet(torch.bfloat16, seed=0)
-    init_fn, step_fn = make_stage1_train_step(unet)
-    state = init_fn()
-    batch = synthetic_batch(b, seed=7)
-    gen = torch.Generator(device="cuda").manual_seed(8)
+def train_draws(b: int, seed: int):
+    """A generator from ``seed`` and one (t, noise, drop) drawn from it."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     draws = dict(
         t=torch.randint(0, 1000, (b,), generator=gen, device="cuda"),
         noise=torch.randn((b, 2, WINDOW, WINDOW), generator=gen, device="cuda"),
         drop=torch.rand((b,), generator=gen, device="cuda") < 0.1)
+    return gen, draws
+
+
+def train_steps(phase: str, step_fn, state, batch, gen, draws):
+    """One warm-up step with draws from ``gen``, then ``TRAIN_STEPS`` timed
+    steps with one fixed (t, noise, drop), so that the losses are those of
+    one objective and must fall; K1r / K1b ``ATTN_PER_STEP`` launches per
+    step.  Returns (state, the fields of the phase's line)."""
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.train import TrainingStabilizer
+
     stabilizer = TrainingStabilizer()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -1691,34 +1712,351 @@ def phase_train_path(trace_steps: int = 0) -> dict:
             norms.append(metrics["grad_norm"].item())
             stabilizer.training_step(losses[-1], norms[-1])
     except torch.cuda.OutOfMemoryError as exc:
-        fail(f"train_path: batch {b} does not fit the card's memory: {exc}")
+        fail(f"{phase}: the batch does not fit the card's memory: {exc}")
     counts = ops.launch_counts()
     memory = stabilizer.memory_report()
 
     if state.step != TRAIN_STEPS + 1:
-        fail(f"train_path: state.step {state.step}")
+        fail(f"{phase}: state.step {state.step}")
     if not all(np.isfinite(x) for x in losses + norms):
-        fail(f"train_path: losses {losses}, grad norms {norms}")
+        fail(f"{phase}: losses {losses}, grad norms {norms}")
     if not losses[-1] < losses[0]:
-        fail(f"train_path: the loss did not fall: {losses}")
+        fail(f"{phase}: the loss did not fall: {losses}")
     expected = launches(flash_sdpa_with_lse=ATTN_PER_STEP * TRAIN_STEPS,
                         flash_sdpa_backward=ATTN_PER_STEP * TRAIN_STEPS)
     if counts != expected:
-        fail(f"train_path: launch counts {counts} != {expected}")
+        fail(f"{phase}: launch counts {counts} != {expected}")
+    return state, {
+        "steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
+        "seconds_per_step": statistics.median(seconds),
+        "seconds_per_step_runs": seconds,
+        "sync": "synchronize + host clock around each step, median",
+        "max_memory_allocated_bytes": memory["peak_allocated_bytes"],
+        "launches": counts,
+        "launches_per_step": {k: v // TRAIN_STEPS for k, v in counts.items()}}
+
+
+def phase_train_path(trace_steps: int = 0) -> dict:
+    """Optimiser steps of the stage-1 trainer at full width in bfloat16,
+    batch 16, through the entry point a user calls
+    (``make_stage1_train_step``), as ``train_steps`` runs them."""
+    from diffbinaural_tpu_torch.train import make_stage1_train_step
+
+    b = TRAIN_BATCH
+    unet = build_unet(torch.bfloat16, seed=0)
+    init_fn, step_fn = make_stage1_train_step(unet)
+    batch = synthetic_batch(b, seed=7)
+    gen, draws = train_draws(b, seed=8)
+    state, fields = train_steps("train_path", step_fn, init_fn(), batch, gen,
+                                draws)
     if not all(torch.isfinite(p).all() for p in unet.parameters()):
         fail("train_path: a parameter is not finite after the steps")
-    out = {"phase": "train_path", "dtype": "bf16", "batch": b,
-           "steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
-           "seconds_per_step": statistics.median(seconds),
-           "seconds_per_step_runs": seconds,
-           "sync": "synchronize + host clock around each step, median",
-           "max_memory_allocated_bytes": memory["peak_allocated_bytes"],
-           "launches": counts,
-           "launches_per_step": {k: v // TRAIN_STEPS for k, v in counts.items()}}
+    out = {"phase": "train_path", "dtype": "bf16", "batch": b, **fields}
     emit(out)
     if trace_steps > 0:
         emit(trace("train_step", lambda: step_fn(state, batch, **draws),
                    min(trace_steps, 3)))
+    return out
+
+
+# ------------------------------------------------ visual conditioning path
+
+# --num_frames 1 and --max_sources 4 (the JAX CLI's defaults), 224 x 224
+FRAMES, N_SOURCES, IMAGE = 1, 4, 224
+# an encoder on the card against the same weights on the CPU, float32 with
+# TF32 off: max error of the output's scale, rms error of its rms
+VISUAL_TOL, VISUAL_RMS_TOL = 1e-4, 1e-5
+
+
+def visual_inputs(b: int, seed: int):
+    """Frames (b, 3, 1, 4, 224, 224), 2-D and 3-D positions in [-1, 1) and
+    a mask (True = invalid) with the last source of every frame padded; on
+    the CPU, from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    frames = torch.randn((b, 3, FRAMES, N_SOURCES, IMAGE, IMAGE),
+                         generator=gen)
+    pos2 = torch.rand((b, FRAMES, N_SOURCES, 2), generator=gen) * 2 - 1
+    pos3 = torch.rand((b, FRAMES, N_SOURCES, 3), generator=gen) * 2 - 1
+    mask = torch.zeros((b, FRAMES, N_SOURCES), dtype=torch.bool)
+    mask[..., -1] = True
+    return frames, pos2, mask, pos3
+
+
+def clip_tower_flops(config, images: int) -> float:
+    """Multiply-adds x 2 of ``images`` passes of the ViT image tower: patch
+    convolution, per layer the four projections, scores and weighted sum,
+    and the 4x MLP, and the final projection (LayerNorms and softmax
+    left out)."""
+    c = config
+    grid = (c.image_size // c.patch_size) ** 2
+    n, w = grid + 1, c.width
+    conv = grid * w * 3 * c.patch_size ** 2
+    layer = 4 * n * w * w + 2 * n * n * w + 2 * n * w * 4 * w
+    return 2.0 * images * (conv + c.layers * layer + w * c.output_dim)
+
+
+def phase_visual_check() -> None:
+    """The encoders at full width in float32 (TF32 off), seeded random
+    weights: ``ClipPos2D`` at B = 2 and each of the six registry entries at
+    B = 1 on the card against the same weights on the CPU; then one
+    live-visual stage-1 train step at batch 2 (``ClipPos2D`` + the float32
+    UNet) with one injected (t, noise, drop), the loss, pre-clip norm and
+    every UNet and frame-head gradient through the kernels against the same
+    through the plain versions (as ``train_check``), every tower gradient
+    exactly zero; and a second step at ``lr_scale`` 1, after which every
+    tower leaf must equal (1 - lr * wd) * w: Adam's update of a zero
+    gradient is zero and the decay reaches the frozen leaves, as in the JAX
+    chain."""
+    from diffbinaural_tpu_torch.models.visual import (ENCODER_REGISTRY,
+                                                      apply_visual,
+                                                      build_visual)
+    from diffbinaural_tpu_torch.train import make_stage1_train_step
+
+    frames, pos2, mask, pos3 = visual_inputs(2, seed=11)
+    encoders = {}
+    for arch, b in [("clip_pos2d", 2)] + [(a, 1) for a in ENCODER_REGISTRY]:
+        cpu = build_visual(arch, seed=1, device="cpu")
+        card = copy.deepcopy(cpu).cuda()
+        args = [a[:b] for a in (frames, pos2, mask, pos3)]
+        with torch.no_grad():
+            want = apply_visual(cpu, *args).cuda()
+            got = apply_visual(card, *(a.cuda() for a in args))
+        if got.shape != (b, 512):
+            fail(f"visual_check {arch}: output shape {tuple(got.shape)}")
+        err = _compare("visual_check", f"{arch} B={b}", got, want,
+                       VISUAL_TOL, True, rms_tol=VISUAL_RMS_TOL)
+        encoders[f"{arch}_b{b}"] = {
+            "max_err": err, "scale": want.abs().max().item(),
+            "rms_err_of_rms": _rel_rms(got, want),
+            "parameters": sum(p.numel() for p in cpu.parameters())}
+        del cpu, card
+
+    b = 2
+    unet = build_unet(torch.float32, seed=0)
+    visual = build_visual("clip_pos2d", seed=1)
+    init_fn, step_fn = make_stage1_train_step(unet, visual=visual,
+                                              clip_norm=float("inf"))
+    state = init_fn()
+    state.lr_scale = 0.0
+    batch = synthetic_batch(b, seed=5)
+    del batch["feat"]
+    frames, pos2, mask, _ = visual_inputs(b, seed=12)
+    batch.update(frames=frames.cuda(), pos=pos2.cuda(), mask=mask.cuda())
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    draws = dict(
+        t=torch.tensor([37, 811], device="cuda"),
+        noise=torch.randn((b, 2, WINDOW, WINDOW), generator=gen, device="cuda"),
+        drop=torch.tensor([False, False], device="cuda"))
+    tower = dict(visual.clip.named_parameters())
+    trained = {f"unet.{k}": p for k, p in unet.named_parameters()}
+    trained.update({f"frame.{k}": p for k, p in visual.named_parameters()
+                    if not k.startswith("clip.")})
+
+    def run():
+        _, metrics = step_fn(state, batch, **draws)
+        torch.cuda.synchronize()
+        nonzero = [k for k, p in tower.items() if p.grad.count_nonzero()]
+        if nonzero:
+            fail(f"visual_check: tower gradients not zero: {nonzero[:5]}")
+        grads = {k: p.grad.clone() for k, p in trained.items()}
+        return metrics["loss"].item(), metrics["grad_norm"].item(), grads
+
+    fields, grads_p = step_against_plain(
+        "visual_check", run, launches(flash_sdpa_with_lse=ATTN_PER_STEP,
+                                      flash_sdpa_backward=ATTN_PER_STEP))
+    head_scale = max(g.abs().max().item() for k, g in grads_p.items()
+                     if k.startswith("frame."))
+    if not head_scale > 0:
+        fail("visual_check: the frame head got no gradient")
+
+    before = {k: p.detach().clone() for k, p in tower.items()}
+    group = state.optimizer.param_groups[1]
+    state.lr_scale = 1.0
+    step_fn(state, batch, **draws)
+    torch.cuda.synchronize()
+    factor = 1.0 - group["base_lr"] * group["weight_decay"]
+    decay_err = max((p.detach() - before[k] * factor).abs().max().item()
+                    for k, p in tower.items())
+    if decay_err != 0.0:
+        fail(f"visual_check: a tower leaf is not (1 - lr * wd) * w after a "
+             f"step: max error {decay_err:.3e}")
+    moved = max((p.detach() - before[k]).abs().max().item()
+                for k, p in tower.items())
+    emit({"phase": "visual_check", "dtype": "fp32", "tf32": False,
+          "encoders_card_vs_cpu": encoders, "tol_of_scale": VISUAL_TOL,
+          "rms_tol": VISUAL_RMS_TOL, "batch": b, "frames": list(frames.shape),
+          "tower_tensors": len(tower), "head_grad_scale": head_scale,
+          "tower_decay_factor": factor, "tower_decay_max_err": decay_err,
+          "tower_max_change": moved, **fields})
+    del unet, visual, state, grads_p, before
+    torch.cuda.empty_cache()
+
+
+def phase_visual_train_path(trace_steps: int = 0) -> dict:
+    """Optimiser steps of the stage-1 trainer with the live encoder: the
+    serving UNet in bfloat16, ``ClipPos2D`` (ViT-B/32) in float32, batch 16
+    of frames (16, 3, 1, 4, 224, 224) = 64 CLIP images per step, through
+    ``make_stage1_train_step(unet, visual=...)``: one warm-up step, then
+    ``TRAIN_STEPS`` timed steps on one (t, noise, drop).  Also the tower's
+    forward on the 64 images and the encoder's forward alone, by CUDA
+    events, beside the tower's FLOP bound."""
+    from diffbinaural_tpu_torch.models.visual import apply_visual, build_visual
+    from diffbinaural_tpu_torch.train import make_stage1_train_step
+
+    b = TRAIN_BATCH
+    unet = build_unet(torch.bfloat16, seed=0)
+    visual = build_visual("clip_pos2d", seed=1)
+    init_fn, step_fn = make_stage1_train_step(unet, visual=visual)
+    batch = synthetic_batch(b, seed=7)
+    del batch["feat"]
+    frames, pos2, mask, _ = (a.cuda() for a in visual_inputs(b, seed=13))
+    batch.update(frames=frames, pos=pos2, mask=mask)
+    gen, draws = train_draws(b, seed=8)
+    state, fields = train_steps("visual_train_path", step_fn, init_fn(),
+                                batch, gen, draws)
+    if not all(torch.isfinite(p).all() for p in visual.parameters()):
+        fail("visual_train_path: an encoder parameter is not finite")
+
+    images = b * FRAMES * N_SOURCES
+    flat = frames.permute(0, 2, 3, 1, 4, 5).reshape(images, 3, IMAGE, IMAGE)
+    with torch.no_grad():
+        tower_ms = time_ms(lambda: visual.clip(flat), warmup=1, iters=5)
+        encoder_ms = time_ms(lambda: apply_visual(visual, frames, pos2, mask),
+                             warmup=1, iters=5)
+    flops = clip_tower_flops(visual.clip.config, images)
+    out = {"phase": "visual_train_path", "unet_dtype": "bf16",
+           "encoder_dtype": "fp32", "tf32": False, "batch": b,
+           "frames": list(frames.shape), "clip_images_per_step": images,
+           **fields, "tower_fwd_ms": tower_ms, "tower_gflop": flops / 1e9,
+           "tower_bound_ms": flops / PEAK_FLOPS["fp32"] * 1e3,
+           "tower_bound_by": "operations (fp32, 67 TFLOP/s)",
+           "encoder_fwd_ms": encoder_ms,
+           "timing_of_tower_and_encoder": "CUDA events over 5 calls"}
+    emit(out)
+    if trace_steps > 0:
+        def encoder_fwd_bwd():
+            apply_visual(visual, frames, pos2, mask).sum().backward()
+
+        with torch.no_grad():
+            tower = trace("visual_tower_fwd", lambda: visual.clip(flat), 3)
+        encoder = trace("visual_encoder_fwd_bwd", encoder_fwd_bwd, 3)
+        step = trace("visual_train_step",
+                     lambda: step_fn(state, batch, **draws), 3)
+        for row in (tower, encoder, step):
+            emit(row)
+        emit({"phase": "visual_split", "device_ms_per_step": {
+            "tower": tower["device_ms_per_call"],
+            "head_fwd_bwd": encoder["device_ms_per_call"]
+            - tower["device_ms_per_call"],
+            "unet_and_optimiser": step["device_ms_per_call"]
+            - encoder["device_ms_per_call"]}})
+    del state, unet, visual, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+class SyntheticVisualClip:
+    """What ``cli.common.dump_clip_mels`` reads of a dataset: the ln-mel of
+    a seeded synthetic 10 s clip by the port's frontend, its 21 window
+    starts, its row, and per window the frames (3, 1, 4, 224, 224), 2-D
+    positions and mask on the card."""
+
+    def __init__(self, seed: int):
+        from diffbinaural_tpu_torch.infer.stage1 import window_starts
+        from diffbinaural_tpu_torch.signal import mel_spectrogram
+
+        wav = torch.from_numpy(synthetic_clip(seed)).cuda()
+        self.full_mel = mel_spectrogram(wav[None])[0].cpu().numpy()
+        self.starts = window_starts(self.full_mel.shape[-1])
+        self.rows = [{"video_id": f"synthetic{seed}"}]
+        self.frames, self.pos, self.mask, _ = (
+            a.cuda() for a in visual_inputs(len(self.starts), seed))
+
+    def __len__(self):
+        return len(self.starts)
+
+    def __getitem__(self, i):
+        return {"frames": self.frames[i], "2d_pos_data": self.pos[i],
+                "mask": self.mask[i]}
+
+
+def phase_visual_serve() -> dict:
+    """A clip generated from frames: per-window features by ``ClipPos2D``
+    (float32) through ``cli.common.visual_apply_fn``, then
+    ``cli.common.dump_clip_mels`` with DDIM-25 over the bfloat16 UNet in
+    groups of 8, into the L/R ``.npy`` pair.  One warm-up clip, then 3
+    timed clips; the encoder's seconds are summed per clip between
+    synchronisations."""
+    from argparse import Namespace
+
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.cli.common import (dump_clip_mels,
+                                                   visual_apply_fn)
+    from diffbinaural_tpu_torch.infer.stage1 import Stage1Sampler
+    from diffbinaural_tpu_torch.models.visual import build_visual
+
+    clip = SyntheticVisualClip(seed=21)
+    total = clip.full_mel.shape[-1]
+    if (total, len(clip)) != (861, 21):
+        fail(f"visual_serve: {total} frames, {len(clip)} windows")
+    unet = build_unet(torch.bfloat16, seed=0)
+    apply = visual_apply_fn(build_visual("clip_pos2d", seed=1), "clip_pos2d")
+    sampler = Stage1Sampler(unet, sampling_timesteps=DDIM_STEPS)
+    encoder_s = []
+
+    def features(item):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feat = apply(item["frames"][None], item["2d_pos_data"][None],
+                     item["mask"][None])[0]
+        torch.cuda.synchronize()
+        encoder_s.append(time.perf_counter() - t0)
+        return feat
+
+    with tempfile.TemporaryDirectory() as workdir:
+        left, right = f"{workdir}/left", f"{workdir}/right"
+
+        def one_clip():
+            encoder_s.clear()
+            gen = torch.Generator(device="cuda").manual_seed(13)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mel = dump_clip_mels(Namespace(crop_frames=8), sampler, clip,
+                                 left, right, features_fn=features,
+                                 generator=gen, max_batch=UNET_BATCH)
+            seconds = time.perf_counter() - t0
+            return mel, seconds, sum(encoder_s)
+
+        one_clip()  # warm-up
+        ops.reset_launch_counts()
+        mel, first, first_enc = one_clip()
+        counts = ops.launch_counts()
+        runs = [(first, first_enc)] + [one_clip()[1:] for _ in range(2)]
+        saved = [np.load(f"{d}/synthetic21.npy") for d in (left, right)]
+    expected = launches(flash_sdpa=ATTN_PER_STEP * DDIM_STEPS * 3)
+    if counts != expected:
+        fail(f"visual_serve: launch counts {counts} != {expected}")
+    if mel.shape != (2, 80, total) or not np.isfinite(mel).all():
+        fail(f"visual_serve: mel {mel.shape}, finite {np.isfinite(mel).all()}")
+    if not all(np.array_equal(s, m) for s, m in zip(saved, mel)):
+        fail("visual_serve: the saved .npy pair differs from the clip's mels")
+    seconds = statistics.median(r[0] for r in runs)
+    out = {"phase": "visual_serve", "unet_dtype": "bf16",
+           "encoder_dtype": "fp32", "tf32": False, "frames": total,
+           "windows": len(clip), "groups": 3, "ddim_steps": DDIM_STEPS,
+           "window_frames": [1, 3, FRAMES, N_SOURCES, IMAGE, IMAGE],
+           "seconds_per_clip": seconds,
+           "seconds_per_clip_runs": [r[0] for r in runs],
+           "encoder_seconds_runs": [r[1] for r in runs],
+           "encoder_share": statistics.median(r[1] / r[0] for r in runs),
+           "sync": "synchronize + host clock around dump_clip_mels, median "
+                   "of 3 clips after a warm-up; encoder: synchronize around "
+                   "each window's call",
+           "mel_range": [float(mel.min()), float(mel.max())],
+           "launches": counts}
+    emit(out)
+    del unet, apply, sampler, clip
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2043,7 +2381,8 @@ def main() -> None:
     ap.add_argument("--trace", type=int, default=0, metavar="STEPS",
                     help="also trace STEPS UNet calls, one vocoder pass, one "
                          "clip with each sampler and up to 3 steps of each "
-                         "trainer with torch.profiler")
+                         "trainer (the live-visual one split into tower, "
+                         "head and UNet) with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures on the card only")
@@ -2065,6 +2404,9 @@ def main() -> None:
     phase_grad_flow()
     phase_train_check()
     train_out = phase_train_path(args.trace)
+    phase_visual_check()
+    phase_visual_train_path(args.trace)
+    phase_visual_serve()
     phase_stage2_check()
     gan_out = phase_stage2_path(args.trace)
     # each kernel's count comes from the run of its own path

@@ -91,6 +91,16 @@ def discriminator_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return _state_dict(tree)
 
 
+def visual_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Parameters of a JAX visual encoder (any ``ENCODER_REGISTRY`` entry,
+    ``CLIPModel``, either CLIP tower, or a sub-module) -> state_dict of the
+    port's counterpart.  The raw CLIP arrays (``class_embedding``,
+    ``positional_embedding``, ``proj``, ``token_embedding``,
+    ``text_projection``, ``logit_scale``) and ``FrozenBN``'s ``mean`` /
+    ``var`` keep their names and layouts."""
+    return _state_dict(tree)
+
+
 def _leaf_to_flax(name: str, value: np.ndarray):
     """Inverse of :func:`_leaf`."""
     if name == "weight":

@@ -1,6 +1,8 @@
 from .config import (
     AttrDict,
     AudioConfig,
+    CLIPConfig,
+    CLIPTextConfig,
     DiffusionConfig,
     UnetConfig,
     VocoderConfig,

@@ -22,9 +22,16 @@ The upstream BigVGAN names: ``import_torch_bigvgan`` and
 from the flax tree; ``save_pretrained`` / ``from_pretrained`` are the
 Hub-style directory of ``config.json`` + ``bigvgan_generator.pt``.
 
+The upstream CLIP and torchvision names: ``import_torch_clip_vision``,
+``import_torch_clip_text`` and ``import_torch_clip`` map an OpenAI CLIP
+state dict (``visual.*``, ``transformer.resblocks.*``; the packed
+``in_proj_weight`` split into q / k / v) to the flax tree of the CLIP
+towers, ``import_torch_resnet18`` a torchvision resnet18 one to
+``ResNet18Trunk``'s (``FrozenBN`` takes the running statistics), and
+``graft_resnet18_trunk`` puts the latter into a ``ResnetEncoder`` tree.
+
 Not here: Orbax checkpoints (directories) — reading them needs JAX, so
-``load_checkpoint`` names the conversion on the JAX side instead — and the
-CLIP / ResNet-18 import shims, which wait for the visual encoders.
+``load_checkpoint`` names the conversion on the JAX side instead.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import pickle
 from dataclasses import asdict
 from typing import Any, Dict, Optional
 
@@ -263,3 +271,148 @@ def from_pretrained(directory: str):
         return load_checkpoint(path)["generator"], cfg
     except serialization.DecodeError:
         return import_torch_bigvgan(path, VocoderConfig.from_attrdict(cfg)), cfg
+
+
+# ---------------------------------------------------------------------------
+# upstream CLIP and torchvision names
+# ---------------------------------------------------------------------------
+
+
+def _dense(w, b=None) -> Dict[str, np.ndarray]:
+    out = {"kernel": w.T.astype(np.float32)}
+    if b is not None:
+        out["bias"] = b.astype(np.float32)
+    return out
+
+
+def _layer_norm(g, k) -> Dict[str, np.ndarray]:
+    return {"scale": g(f"{k}.weight"), "bias": g(f"{k}.bias")}
+
+
+def _clip_resblocks(g, keys) -> Dict[str, Any]:
+    """The residual blocks of one CLIP tower; ``g(key)`` reads a key below
+    the tower's prefix, ``keys`` are those keys."""
+    n_layers = 1 + max(int(k.split(".")[2]) for k in keys
+                       if k.startswith("transformer.resblocks."))
+    blocks: Dict[str, Any] = {}
+    for i in range(n_layers):
+        b = f"transformer.resblocks.{i}"
+        in_w, in_b = g(f"{b}.attn.in_proj_weight"), g(f"{b}.attn.in_proj_bias")
+        d = in_w.shape[0] // 3
+        blocks[f"resblock_{i}"] = {
+            "ln_1": _layer_norm(g, f"{b}.ln_1"),
+            "ln_2": _layer_norm(g, f"{b}.ln_2"),
+            "attn": {
+                "q_proj": _dense(in_w[:d], in_b[:d]),
+                "k_proj": _dense(in_w[d:2 * d], in_b[d:2 * d]),
+                "v_proj": _dense(in_w[2 * d:], in_b[2 * d:]),
+                "out_proj": _dense(g(f"{b}.attn.out_proj.weight"),
+                                   g(f"{b}.attn.out_proj.bias")),
+            },
+            "mlp_c_fc": _dense(g(f"{b}.mlp.c_fc.weight"),
+                               g(f"{b}.mlp.c_fc.bias")),
+            "mlp_c_proj": _dense(g(f"{b}.mlp.c_proj.weight"),
+                                 g(f"{b}.mlp.c_proj.bias")),
+        }
+    return blocks
+
+
+def import_torch_clip_vision(path_or_sd) -> Dict:
+    """OpenAI CLIP ``visual.*`` weights (with or without the ``visual.``
+    prefix) -> ``CLIPVisionTransformer``'s flax tree."""
+    sd = _load_torch_state_dict(path_or_sd)
+    pfx = "visual." if any(k.startswith("visual.") for k in sd) else ""
+
+    def g(k):
+        return sd[pfx + k].astype(np.float32)
+
+    keys = [k[len(pfx):] for k in sd if k.startswith(pfx)]
+    return {"params": {
+        "conv1": {"kernel": g("conv1.weight").transpose(2, 3, 1, 0)},
+        "class_embedding": g("class_embedding"),
+        "positional_embedding": g("positional_embedding"),
+        "ln_pre": _layer_norm(g, "ln_pre"),
+        "ln_post": _layer_norm(g, "ln_post"),
+        "proj": g("proj"),
+        **_clip_resblocks(g, keys),
+    }}
+
+
+def import_torch_clip_text(path_or_sd) -> Dict:
+    """OpenAI CLIP text-tower weights (``token_embedding``,
+    ``positional_embedding``, ``transformer.resblocks.*``, ``ln_final``,
+    ``text_projection``) -> ``CLIPTextTransformer``'s flax tree."""
+    sd = _load_torch_state_dict(path_or_sd)
+
+    def g(k):
+        return sd[k].astype(np.float32)
+
+    return {"params": {
+        "token_embedding": g("token_embedding.weight"),
+        "positional_embedding": g("positional_embedding"),
+        "ln_final": _layer_norm(g, "ln_final"),
+        "text_projection": g("text_projection"),
+        **_clip_resblocks(g, list(sd)),
+    }}
+
+
+def import_torch_clip(path_or_sd) -> Dict:
+    """A whole OpenAI CLIP checkpoint -> ``CLIPModel``'s flax tree (both
+    towers and ``logit_scale``)."""
+    sd = _load_torch_state_dict(path_or_sd)
+    text_sd = {k: v for k, v in sd.items() if not k.startswith("visual.")}
+    return {"params": {
+        "visual": import_torch_clip_vision(sd)["params"],
+        "text": import_torch_clip_text(text_sd)["params"],
+        "logit_scale": sd["logit_scale"].astype(np.float32),
+    }}
+
+
+def import_torch_resnet18(path_or_sd) -> Dict:
+    """A torchvision resnet18 state dict -> ``ResNet18Trunk``'s flax tree:
+    conv (out, in, kh, kw) -> (kh, kw, in, out), BatchNorm -> ``FrozenBN``'s
+    (scale, bias, mean, var) from the running statistics; ``layer{1..4}.
+    {0,1}`` -> ``block_{0..7}``; the ``fc`` head is dropped."""
+    sd = _load_torch_state_dict(path_or_sd)
+
+    def conv(k):
+        return {"kernel": sd[f"{k}.weight"].transpose(2, 3, 1, 0).astype(
+            np.float32)}
+
+    def bn(k):
+        return {"scale": sd[f"{k}.weight"].astype(np.float32),
+                "bias": sd[f"{k}.bias"].astype(np.float32),
+                "mean": sd[f"{k}.running_mean"].astype(np.float32),
+                "var": sd[f"{k}.running_var"].astype(np.float32)}
+
+    params: Dict[str, Any] = {"conv1": conv("conv1"), "bn1": bn("bn1")}
+    for layer in range(1, 5):
+        for b in range(2):
+            src = f"layer{layer}.{b}"
+            blk = {"conv1": conv(f"{src}.conv1"), "bn1": bn(f"{src}.bn1"),
+                   "conv2": conv(f"{src}.conv2"), "bn2": bn(f"{src}.bn2")}
+            if f"{src}.downsample.0.weight" in sd:
+                blk["down_conv"] = conv(f"{src}.downsample.0")
+                blk["down_bn"] = bn(f"{src}.downsample.1")
+            params[f"block_{(layer - 1) * 2 + b}"] = blk
+    return {"params": params}
+
+
+def is_torchvision_resnet18_sd(path_or_sd) -> bool:
+    """Does this torch checkpoint hold torchvision resnet18 weights (and
+    not one of the trainers' frame-encoder checkpoints)?  False for a file
+    ``torch.load`` cannot read as a state dict."""
+    try:
+        sd = _load_torch_state_dict(path_or_sd)
+    except (OSError, RuntimeError, AttributeError, pickle.UnpicklingError):
+        return False
+    return "layer1.0.conv1.weight" in sd and "conv1.weight" in sd
+
+
+def graft_resnet18_trunk(frame_variables: Dict, path_or_sd) -> Dict:
+    """A copy of a ``ResnetEncoder`` variables tree with torchvision's
+    weights at its ``features`` trunk; the transformer is left as it is."""
+    out = dict(frame_variables)
+    out["params"] = dict(frame_variables["params"])
+    out["params"]["features"] = import_torch_resnet18(path_or_sd)["params"]
+    return out

@@ -1,6 +1,7 @@
 """Config ingestion: JSON + AttrDict, and the typed dataclasses of the
-inference and stage-1 training paths.  Own copy of the framework-free definitions in
-``diffbinaural_tpu/core/config.py`` — the port never imports that package.
+inference and stage-1 training paths and of the CLIP towers.  Own copy of
+the framework-free definitions in ``diffbinaural_tpu/core/config.py`` — the
+port never imports that package.
 """
 
 from __future__ import annotations
@@ -107,3 +108,27 @@ class VocoderConfig:
             use_tanh_at_final=h.get("use_tanh_at_final", True),
             use_bias_at_final=h.get("use_bias_at_final", True),
         )
+
+
+@dataclass(frozen=True)
+class CLIPConfig:
+    """ViT-B/32 image tower (``clip.load("ViT-B/32")``'s visual half)."""
+
+    image_size: int = 224
+    patch_size: int = 32
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+    output_dim: int = 512
+
+
+@dataclass(frozen=True)
+class CLIPTextConfig:
+    """ViT-B/32 text tower (CLIP's ``encode_text``)."""
+
+    vocab_size: int = 49408
+    context_length: int = 77
+    width: int = 512
+    layers: int = 12
+    heads: int = 8
+    output_dim: int = 512

@@ -1,8 +1,8 @@
 """The port's models and the functions that construct them.
 
-``build_unet`` / ``build_vocoder`` return a module in eval mode with random
-weights drawn from ``seed`` (the distributions of the JAX package's
-initialisers), on the card unless ``device="cpu"`` is passed;
+``build_unet`` / ``build_vocoder`` / ``build_visual`` return a module in
+eval mode with random weights drawn from ``seed`` (the distributions of the
+JAX package's initialisers), on the card unless ``device="cpu"`` is passed;
 ``build_discriminators`` returns the config-driven pair of stage-2
 discriminators the same way.
 """
@@ -33,6 +33,7 @@ from .bigvgan import (
 )
 from .layers import Conv2dNHWC, Dense, lecun_normal_
 from .unet import AudioVisualModel, Unet
+from .visual import ENCODER_REGISTRY, apply_visual, build_visual
 
 
 @torch.no_grad()
@@ -120,8 +121,9 @@ def build_discriminators(h, dtype=torch.float32, seed: int = 0, device=None):
 
 __all__ = [
     "AudioVisualModel", "BigVGAN", "BinauralBigVGAN", "CombinedDiscriminator",
-    "MultiBandDiscriminator", "MultiPeriodDiscriminator",
+    "ENCODER_REGISTRY", "MultiBandDiscriminator", "MultiPeriodDiscriminator",
     "MultiResolutionDiscriminator", "MultiScaleSubbandCQTDiscriminator",
-    "Unet", "build_discriminators", "build_unet", "build_vocoder",
+    "Unet", "apply_visual", "build_discriminators", "build_unet",
+    "build_visual", "build_vocoder",
     "init_discriminator", "init_parameters", "remove_weight_norm",
 ]

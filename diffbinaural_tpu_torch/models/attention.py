@@ -1,6 +1,6 @@
 """Attention stack of the stage-1 UNet on channels-last (B, H, W, C)
-feature maps — counterpart of ``diffbinaural_tpu/models/attention.py``
-(everything but ``MaskedAttention``, which only the visual encoders use).
+feature maps — counterpart of ``diffbinaural_tpu/models/attention.py``;
+``MaskedAttention`` is the token attention of the visual encoders.
 
 Sub-modules carry the flax names, so converted weights load by a mechanical
 walk of the parameter tree.  Parameters are float32; ``dtype`` selects the
@@ -196,6 +196,35 @@ class CrossAttention(nn.Module):
         attn = torch.softmax(sim, dim=-1).to(v.dtype)
         out = _merge_heads(torch.matmul(attn, v))
         return self.to_out(out).reshape(b, h, w, self.query_dim)
+
+
+class MaskedAttention(nn.Module):
+    """Token self-attention with a key-padding mask, float32: x (B, N, C),
+    mask (B, N) with True = a VALID key.  Masked keys get float32's lowest
+    value, not -inf, so a row with no valid key softmaxes to uniform
+    weights."""
+
+    def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.to_q = Dense(query_dim, inner, bias=False)
+        self.to_k = Dense(query_dim, inner, bias=False)
+        self.to_v = Dense(query_dim, inner, bias=False)
+        self.to_out = Dense(inner, query_dim)
+        self.out_drop = nn.Dropout(dropout)
+
+    def forward(self, x, mask=None):
+        q = _split_heads(self.to_q(x), self.heads) * (self.dim_head**-0.5)
+        k = _split_heads(self.to_k(x), self.heads)
+        v = _split_heads(self.to_v(x), self.heads)
+        sim = torch.matmul(q, k.transpose(-1, -2))
+        if mask is not None:
+            sim = sim.masked_fill(~mask[:, None, None, :],
+                                  torch.finfo(torch.float32).min)
+        out = torch.matmul(torch.softmax(sim, dim=-1), v)
+        return self.out_drop(self.to_out(_merge_heads(out)))
 
 
 class GEGLU(nn.Module):

@@ -17,12 +17,14 @@ the same expression for the last three; the clip is written out here,
 because ``clip_grad_norm_`` divides by ``norm + 1e-6`` where optax divides by
 the norm itself.
 
-The JAX train step applies the UNet with dropout off, and so does this one,
-whatever the module's ``train()``/``eval()`` flag says.
+The JAX train step applies the UNet and the frame encoder with dropout off,
+and so does this one, whatever the modules' ``train()``/``eval()`` flags
+say; it leaves every flag as it found it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -32,6 +34,7 @@ import torch.nn as nn
 from ..core.device import resolve_device
 from ..diffusion import GaussianDiffusion
 from ..infer.stage1 import normalize_mel
+from ..models.visual import apply_visual
 
 
 @dataclass
@@ -41,6 +44,21 @@ class Stage1TrainState:
     visual: Optional[nn.Module]
     optimizer: torch.optim.Optimizer
     lr_scale: float = 1.0  # host-updated multiplicative LR factor
+
+
+@contextlib.contextmanager
+def _dropout_off(*modules: Optional[nn.Module]):
+    """Every sub-module of ``modules`` (None entries skipped) in ``eval()``
+    mode inside the block, each one's own flag restored after it."""
+    flags = [(m, m.training) for module in modules if module is not None
+             for m in module.modules()]
+    try:
+        for m, _ in flags:
+            m.training = False
+        yield
+    finally:
+        for m, flag in flags:
+            m.training = flag
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
@@ -106,9 +124,12 @@ def make_stage1_train_step(
     batch keys: ``'mono_mel'`` (B, 1, H, W) and ``'binaural_mel'``
     (B, 2, H, W) in RAW ln-mel range, plus either precomputed ``'feat'``
     (B, 512) or (``'frames'``, ``'pos'``, ``'mask'``) for the live
-    visual-encoder path.  ``t``, ``noise`` and ``drop`` are the diffusion
-    step, the noise and the CFG drop mask; what is absent is drawn from
-    ``generator``.
+    visual-encoder path: frames (B, 3, T, N, H, W), the positions the
+    encoder's family takes (3-D for ``ClipPos``, 2-D otherwise; unread by
+    ``ResnetEncoder`` and ``ClipEncoder``, which take the mean over the N
+    sources), mask (B, T, N) True = invalid.  ``t``, ``noise`` and
+    ``drop`` are the diffusion step, the noise and the CFG drop mask; what
+    is absent is drawn from ``generator``.
     """
     device = resolve_device(device)
     diffusion = diffusion or GaussianDiffusion(
@@ -144,7 +165,7 @@ def make_stage1_train_step(
                 "the batch has no 'feat' and the train step was made without "
                 "a visual encoder")
         else:
-            feat = state.visual(on_device(batch["frames"]),
+            feat = apply_visual(state.visual, on_device(batch["frames"]),
                                 on_device(batch["pos"]),
                                 on_device(batch["mask"]))
         t, noise, drop = (None if a is None else on_device(a)
@@ -159,12 +180,8 @@ def make_stage1_train_step(
         optimizer = state.optimizer
         optimizer.zero_grad(set_to_none=True)
         # dropout stays off in training, as in the JAX train step
-        was_training = state.unet.training
-        state.unet.eval()
-        try:
+        with _dropout_off(state.unet, state.visual):
             loss = loss_fn(state, batch, generator, t, noise, drop)
-        finally:
-            state.unet.train(was_training)
         loss.backward()
 
         grad_norm = apply_update_(optimizer, state.lr_scale, clip_norm,

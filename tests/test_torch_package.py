@@ -46,7 +46,8 @@ def test_every_module_imports_without_jax():
                 "losses", "losses.gan", "losses.multiscale_mel",
                 "losses.silence", "losses.binaural_enhanced",
                 "models.discriminators", "core.serialization",
-                "core.checkpoint", "cli", "cli.generate_binaural",
+                "core.checkpoint", "cli", "cli.common", "models.visual",
+                "data.clip_tokenizer", "cli.generate_binaural",
                 "cli.inference_e2e", "cli.inference_binaural",
                 "cli.inference_diffbinaural_mels"):
         assert f"diffbinaural_tpu_torch.{sub}" in names
@@ -104,7 +105,8 @@ def _no_card():
         pytest.skip("a CUDA device is present: the default device exists")
 
 
-@pytest.mark.parametrize("entry", ["build_unet", "build_vocoder", "pipeline",
+@pytest.mark.parametrize("entry", ["build_unet", "build_vocoder",
+                                   "build_visual", "pipeline",
                                    "diffusion", "sampler", "vocoder",
                                    "train_step", "build_discriminators",
                                    "stage2_train_step", "generate_binaural",
@@ -116,7 +118,8 @@ def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
     from diffbinaural_tpu_torch.infer import (BinauralPipeline, Stage1Sampler,
                                               Vocoder)
     from diffbinaural_tpu_torch.models import (build_discriminators,
-                                               build_unet, build_vocoder)
+                                               build_unet, build_visual,
+                                               build_vocoder)
     from diffbinaural_tpu_torch.train import (make_stage1_train_step,
                                               make_stage2_train_step)
     from diffbinaural_tpu_torch.cli import (generate_binaural,
@@ -127,6 +130,7 @@ def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
     calls = {
         "build_unet": lambda: build_unet(UnetConfig(dim=16)),
         "build_vocoder": lambda: build_vocoder(VocoderConfig()),
+        "build_visual": lambda: build_visual("clip_pos2d"),
         "pipeline": lambda: BinauralPipeline(None, None, 200),
         "diffusion": lambda: GaussianDiffusion(),
         "sampler": lambda: Stage1Sampler(None),

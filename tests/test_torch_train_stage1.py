@@ -10,16 +10,22 @@ import pytest
 import torch
 import torch.nn as nn
 
+from diffbinaural_tpu.cli.common import visual_apply_fn as jax_visual_apply_fn
+from diffbinaural_tpu.core.config import CLIPConfig as JaxCLIPConfig
 from diffbinaural_tpu.diffusion import GaussianDiffusion as JaxDiffusion
 from diffbinaural_tpu.infer.stage1 import normalize_mel as jax_normalize_mel
 from diffbinaural_tpu.models import AudioVisualModel as JaxAudioVisualModel
+from diffbinaural_tpu.models.visual import ClipPos2D as JaxClipPos2D
 from diffbinaural_tpu.train import TrainingStabilizer as JaxStabilizer
 from diffbinaural_tpu.train import make_stage1_train_step as jax_make_step
-from diffbinaural_tpu_torch.convert import (unet_params_from_flax,
-                                            tree_to_flax)
-from diffbinaural_tpu_torch.core.config import UnetConfig
+from diffbinaural_tpu_torch.convert import (tree_to_flax,
+                                            unet_params_from_flax,
+                                            visual_params_from_flax)
+from diffbinaural_tpu_torch.core.config import CLIPConfig, UnetConfig
 from diffbinaural_tpu_torch.diffusion import GaussianDiffusion
 from diffbinaural_tpu_torch.models import build_unet, unet
+from diffbinaural_tpu_torch.models.visual import (ENCODER_REGISTRY, ClipPos2D,
+                                                  build_visual)
 from diffbinaural_tpu_torch.train import (TrainingStabilizer,
                                           make_stage1_train_step)
 from diffbinaural_tpu_torch.train.stage1 import apply_update_
@@ -323,6 +329,182 @@ def test_loss_trends_down_on_a_fixed_batch():
         assert np.isfinite(losses[-1]) and np.isfinite(float(m["grad_norm"]))
     assert state.step == 8
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
+
+
+# ------------------------------------------ one live-visual step (ClipPos2D)
+
+TINY_CLIP = dict(image_size=32, patch_size=16, width=64, layers=2, heads=2)
+LR_FRAME, WD = 1e-2, 0.5  # a decay the frozen tower's update shows
+
+# The denoiser of the live-visual step: the toy above plus a learned
+# projection of the visual feature, so that every feature component gets a
+# gradient of its own.  (The JAX step over even a one-level UNet of width 8
+# compiles for 12 s on the CPU; the UNet's own step is held above.)
+
+
+def _visual_toy_jax(p, x, tt, cond):
+    f = jnp.tanh(cond[1] @ p["proj"])[:, :, None, None]
+    return _toy_jax(x, tt, (cond[0], jnp.zeros_like(cond[1]), cond[2])) + f
+
+
+class _VisualToy(nn.Module):
+    def __init__(self, proj):
+        super().__init__()
+        self.proj = nn.Parameter(torch.from_numpy(np.array(proj)))
+
+    def forward(self, x, tt, cond):
+        f = torch.tanh(cond[1] @ self.proj)[:, :, None, None]
+        return _toy_torch(x, tt, (cond[0], torch.zeros_like(cond[1]),
+                                  cond[2])) + f
+
+
+@pytest.fixture(scope="module")
+def visual_world():
+    """A ``ClipPos2D`` on the JAX tests' tiny tower, a batch of frames (one
+    source padded everywhere, one frame with every source padded), and the
+    JAX step's loss, pre-clip norm and updated parameters."""
+    rng = np.random.default_rng(1)
+    mask = np.zeros((B, 2, 3), bool)
+    mask[:, :, -1] = True
+    mask[1, 0] = True
+    batch = {
+        "mono_mel": rng.uniform(-13, 3, (B, 1, SIZE, SIZE)).astype(np.float32),
+        "binaural_mel": rng.uniform(-13, 3, (B, 2, SIZE, SIZE)).astype(np.float32),
+        "frames": rng.standard_normal((B, 3, 2, 3, 32, 32)).astype(np.float32),
+        "pos": rng.uniform(-1, 1, (B, 2, 3, 2)).astype(np.float32),
+        "mask": mask,
+    }
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jv = JaxClipPos2D(clip=JaxCLIPConfig(**TINY_CLIP))
+    params = {
+        "unet": {"proj": jnp.asarray(  # tanh(feat @ proj) off saturation
+            rng.standard_normal((512, 2)).astype(np.float32) / np.sqrt(512))},
+        "frame": random_params(jv, rng, jbatch["frames"], jbatch["pos"],
+                               jbatch["mask"]),
+    }
+    key = _key_with_one_drop(B, (B, 2, SIZE, SIZE), T)
+    init_fn, step_fn = jax_make_step(
+        unet_apply=_visual_toy_jax,
+        visual_apply=jax_visual_apply_fn(jv, "clip_pos2d"),
+        diffusion=JaxDiffusion(image_size=SIZE, timesteps=T,
+                               auto_normalize=False),
+        lr_unet=1e-3, lr_frame=LR_FRAME, weight_decay=WD, donate=False)
+    new_state, metrics = step_fn(init_fn(params), jbatch, key)
+    return dict(batch=batch, params=to_numpy_tree(params), key=key,
+                loss=float(metrics["loss"]),
+                grad_norm=float(metrics["grad_norm"]),
+                new_params=to_numpy_tree(new_state.params))
+
+
+def _visual_port_state(world):
+    tv = ClipPos2D(clip=CLIPConfig(**TINY_CLIP))
+    tv.load_state_dict(visual_params_from_flax(world["params"]["frame"]),
+                       strict=True)
+    td = GaussianDiffusion(image_size=SIZE, timesteps=T, device="cpu")
+    init_fn, step_fn = make_stage1_train_step(
+        _VisualToy(world["params"]["unet"]["proj"]), visual=tv.eval(),
+        diffusion=td, lr_unet=1e-3, lr_frame=LR_FRAME, weight_decay=WD,
+        device="cpu")
+    return init_fn(), step_fn
+
+
+def test_one_live_visual_step_matches_jax(visual_world):
+    """The loss (rtol 1e-5) and the pre-clip norm (rtol 1e-4) of one step
+    with the frames through ``ClipPos2D``; the updated denoiser and head
+    parameters within 2 * their LR of JAX's (Adam's first step is
+    lr * g / (|g| + eps), so a gradient that is zero up to rounding may flip
+    its sign); the frozen tower's leaves only decayed, (1 - lr * wd) * w,
+    as the JAX chain's zero Adam update plus decayed weights gives, to
+    1e-6."""
+    w = visual_world
+    state, step_fn = _visual_port_state(w)
+    tt, noise, drop = _jax_draws(w["key"], B, (B, 2, SIZE, SIZE), T)
+    assert drop.any() and not drop.all()
+    state, metrics = step_fn(state, w["batch"], t=tt, noise=noise, drop=drop)
+    moved = 0
+    np.testing.assert_allclose(float(metrics["loss"]), w["loss"], rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]), w["grad_norm"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(state.unet.proj.detach().numpy(),
+                               w["new_params"]["unet"]["proj"], rtol=0,
+                               atol=2e-3 * 1.001)
+    got = _flat(tree_to_flax(dict(state.visual.named_parameters())))
+    want = _flat(w["new_params"]["frame"]["params"])
+    start = _flat(w["params"]["frame"]["params"])
+    assert set(got) == set(want)
+    for name in sorted(want):
+        if name.startswith("clip/"):
+            np.testing.assert_allclose(got[name], want[name], rtol=0,
+                                       atol=1e-6, err_msg=name)
+            np.testing.assert_allclose(
+                got[name], (1.0 - LR_FRAME * WD) * start[name], rtol=0,
+                atol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_allclose(got[name], want[name], rtol=0,
+                                       atol=2 * LR_FRAME * 1.001,
+                                       err_msg=name)
+            moved += bool(np.abs(got[name] - start[name]).max()
+                          > 0.5 * LR_FRAME)
+    assert moved > 20  # the head's leaves took an Adam step, not a decay
+    assert all(p.grad is None or not p.grad.any()
+               for k, p in state.visual.named_parameters()
+               if k.startswith("clip."))
+
+
+def test_dropout_stays_off_in_the_encoder_too(visual_world):
+    """The JAX step applies the frame encoder deterministically; the port's
+    step gives one loss, the JAX one, for one state and one noise on an
+    encoder in train() mode (p = 0.1 dropout in its source stack and
+    temporal layer), and leaves it in train() mode."""
+    w = visual_world
+    state, step_fn = _visual_port_state(w)
+    state.lr_scale = 0.0
+    state.visual.train()
+    state.unet.eval()
+    tt, noise, drop = _jax_draws(w["key"], B, (B, 2, SIZE, SIZE), T)
+    losses = []
+    for _ in range(2):
+        state, m = step_fn(state, w["batch"], t=tt, noise=noise, drop=drop)
+        losses.append(float(m["loss"]))
+        assert state.visual.training and not state.unet.training
+        assert all(m_.training for m_ in state.visual.modules())
+    assert losses[0] == losses[1], losses
+    np.testing.assert_allclose(losses[0], w["loss"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", sorted(ENCODER_REGISTRY))
+def test_every_registry_encoder_trains_live(visual_world, arch):
+    """The live branch routes each family as the JAX ``visual_apply_fn``
+    does (the means over the sources for ``resnet18`` / ``clip``, 3-D
+    positions for ``clip_pos``): one step gives a finite loss, moves the
+    head's leaves and only decays the frozen trunk's."""
+    w = visual_world
+    batch = dict(w["batch"])
+    if arch == "clip_pos":
+        batch["pos"] = np.random.default_rng(2).uniform(
+            -1, 1, batch["pos"].shape[:-1] + (3,)).astype(np.float32)
+    kwargs = {} if arch == "resnet18" else {"clip": CLIPConfig(**TINY_CLIP)}
+    net = build_visual(arch, seed=3, device="cpu", **kwargs)
+    trunk = "features." if arch == "resnet18" else "clip."
+    before = {k: p.detach().clone() for k, p in net.named_parameters()}
+    init_fn, step_fn = make_stage1_train_step(
+        _VisualToy(w["params"]["unet"]["proj"]), visual=net,
+        diffusion=GaussianDiffusion(image_size=SIZE, timesteps=T,
+                                    device="cpu"),
+        lr_frame=LR_FRAME, weight_decay=WD, device="cpu")
+    tt, noise, drop = _jax_draws(w["key"], B, (B, 2, SIZE, SIZE), T)
+    state, metrics = step_fn(init_fn(), batch, t=tt, noise=noise,
+                             drop=np.zeros_like(drop))
+    assert np.isfinite(float(metrics["loss"]))
+    moved = 0
+    for k, p in net.named_parameters():
+        if k.startswith(trunk):
+            torch.testing.assert_close(p.detach(),
+                                       (1.0 - LR_FRAME * WD) * before[k])
+        else:
+            moved += bool((p.detach() - before[k]).abs().max()
+                          > 0.5 * LR_FRAME)
+    assert moved > 10
 
 
 # ------------------------------------------------------- the optimiser chain
