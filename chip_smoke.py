@@ -69,6 +69,7 @@ import argparse
 import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2078,9 +2079,9 @@ def build_gan(gen_dtype, seed: int):
     return h, gen, mpd, mrd
 
 
-def make_gan_step(h, gen, mpd, mrd):
+def make_gan_step(h, gen, mpd, mrd, remat=False):
     """``make_stage2_train_step`` wired as the JAX package's GAN trainer
-    wires it from the config (``cli/gan_common.py``)."""
+    wires it from the config (``cli/gan_common.py``), ``remat`` as given."""
     from diffbinaural_tpu_torch.losses import MultiScaleMelSpectrogramLoss
     from diffbinaural_tpu_torch.signal import mel_spectrogram
     from diffbinaural_tpu_torch.train import make_stage2_train_step
@@ -2098,7 +2099,8 @@ def make_gan_step(h, gen, mpd, mrd):
         clip_grad_norm=h.get("clip_grad_norm", 1000.0),
         lambda_melloss=h.get("lambda_melloss", 45.0), freeze_step=0,
         use_multiscale_melloss=h.get("use_multiscale_melloss", False),
-        silence_threshold_db=h.get("silence_threshold_db", -50.0))
+        silence_threshold_db=h.get("silence_threshold_db", -50.0),
+        remat=remat)
 
 
 def gan_batch(h, batch: int, seed: int) -> dict:
@@ -2342,9 +2344,639 @@ def phase_stage2_path(trace_steps: int = 0) -> dict:
     return out
 
 
-def kernels_line(cases, counts) -> dict:
+# ------------------------------------------- training from data on disk
+
+# the synthetic RealBinaural world of train_cli_stage1: 32 train + 16 val
+# videos of CLIP_SECONDS, 4 sources detected every 0.5 s, JPEG frames of
+# FRAME_W x FRAME_H at 2 fps (when Pillow is present)
+WORLD_TRAIN, WORLD_VAL, WORLD_SOURCES = 32, 16, 4
+FRAME_W, FRAME_H, FRAME_FPS = 640, 360, 2
+# the stage-2 world of train_cli_stage2: 48 stereo clips of CLIP_SECONDS
+# with predicted-mel pairs (80 x 861), 16 of them also in the val dirs
+GAN_WORLD_CLIPS, GAN_WORLD_VAL = 48, 16
+# a stage-2 step with remat: the generator's forward runs twice (once more
+# in the backward pass); K3b recomputes its activation with K2
+REMAT_GAN_PER_STEP = dict(
+    fused_alias_free_snake=2 * ACT_PER_PASS + FUSED_PER_PASS,
+    fused_snake_conv=2 * FUSED_PER_PASS,
+    fused_alias_free_snake_backward=ACT_PER_PASS + FUSED_PER_PASS,
+    fused_snake_conv_backward=FUSED_PER_PASS,
+    snake_conv_dgrad=FUSED_PER_PASS, snake_conv_wgrad=FUSED_PER_PASS)
+# one validation item: a bfloat16 generator pass
+GAN_VAL_PER_ITEM = dict(fused_alias_free_snake=ACT_PER_PASS,
+                        fused_snake_conv=FUSED_PER_PASS)
+GAN_VAL_ITEMS = 10  # GanTrainer.validate's max_samples
+
+
+def _have_pillow() -> bool:
+    try:
+        import PIL.Image  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _world_audio(seed: int) -> tuple:
+    """(mono, binaural (2, T)) of CLIP_SECONDS: ``synthetic_clip`` and its
+    two ears, the right one delayed and attenuated."""
+    mono = synthetic_clip(seed)
+    rng = np.random.default_rng(seed + 1)
+    left = 0.9 * mono + 0.005 * rng.standard_normal(mono.shape)
+    right = 0.6 * np.roll(mono, 11) + 0.005 * rng.standard_normal(mono.shape)
+    return mono, np.clip(np.stack([left, right]), -1, 1).astype(np.float32)
+
+
+def write_stage1_world(root: str, seed: int) -> dict:
+    """The RealBinaural layout under ``root``: ``processed/{mono,binaural}_
+    audios_22050Hz/{vid}.wav`` (16-bit, 22.05 kHz), the split lists, the
+    detection CSV and, with Pillow, ``processed/frames/{vid}/%03d.jpg``."""
+    import csv
+
+    from diffbinaural_tpu_torch.data.audio_io import save_wav
+
+    t0 = time.perf_counter()
+    pillow = _have_pillow()
+    for sub in ("processed/mono_audios_22050Hz",
+                "processed/binaural_audios_22050Hz", "splits",
+                "action_detection_results"):
+        os.makedirs(os.path.join(root, sub))
+    rng = np.random.default_rng(seed)
+    vids = [f"vid{i:03d}" for i in range(WORLD_TRAIN + WORLD_VAL)]
+    det_rows, frames = [], 0
+    for i, vid in enumerate(vids):
+        mono, binaural = _world_audio(seed + 17 * i)
+        save_wav(os.path.join(root, "processed/mono_audios_22050Hz",
+                              vid + ".wav"), mono, SR)
+        save_wav(os.path.join(root, "processed/binaural_audios_22050Hz",
+                              vid + ".wav"), binaural, SR)
+        boxes = []
+        for s in range(WORLD_SOURCES):
+            x1, y1 = rng.uniform(0.0, 0.7), rng.uniform(0.0, 0.6)
+            boxes.append((x1, y1, x1 + rng.uniform(0.1, 0.3),
+                          y1 + rng.uniform(0.2, 0.4)))
+        for k in range(int(CLIP_SECONDS * 2)):
+            for s, (x1, y1, x2, y2) in enumerate(boxes):
+                dx = 0.01 * k
+                det_rows.append([vid, f"{0.5 * k:.2f}", s, f"{x1 + dx:.4f}",
+                                 f"{y1:.4f}", f"{min(x2 + dx, 1.0):.4f}",
+                                 f"{y2:.4f}"])
+        if pillow:
+            from PIL import Image
+
+            d = os.path.join(root, "processed/frames", vid)
+            os.makedirs(d)
+            base = rng.integers(0, 256, (FRAME_H // 8, FRAME_W // 8, 3),
+                                dtype=np.uint8)
+            base = np.repeat(np.repeat(base, 8, 0), 8, 1)
+            for k in range(int(CLIP_SECONDS * FRAME_FPS)):
+                Image.fromarray(np.roll(base, 4 * k, axis=1)).save(
+                    os.path.join(d, f"{k:03d}.jpg"), quality=90)
+                frames += 1
+    for name, part in (("train", vids[:WORLD_TRAIN]),
+                       ("val", vids[WORLD_TRAIN:])):
+        with open(os.path.join(root, "splits", name + ".csv"), "w",
+                  newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["video_id", "start_time", "end_time", "action_label"])
+            w.writerows([v, "0.0", f"{CLIP_SECONDS:.1f}", "synthetic"]
+                        for v in part)
+    with open(os.path.join(root, "action_detection_results",
+                           "detection_results.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["video_id", "time", "source", "x1", "y1", "x2", "y2"])
+        w.writerows(det_rows)
+    return {"videos": len(vids), "train": WORLD_TRAIN, "val": WORLD_VAL,
+            "seconds_each": CLIP_SECONDS, "detections": len(det_rows),
+            "jpeg_frames": frames, "frame_size": [FRAME_W, FRAME_H],
+            "pillow": pillow, "write_s": time.perf_counter() - t0}
+
+
+def write_stage2_world(root: str, seed: int) -> dict:
+    """48 stereo 16-bit wavs of CLIP_SECONDS in ``audio/`` and their
+    predicted-mel pairs (80 x 861: the port's ln-mel of each ear plus a
+    seeded perturbation, as a stage-1 model's output would differ) in
+    ``pred_{left,right}_train/``; the first 16 also in
+    ``pred_{left,right}_val/``."""
+    from diffbinaural_tpu_torch.data.audio_io import save_wav
+    from diffbinaural_tpu_torch.signal import mel_spectrogram
+
+    t0 = time.perf_counter()
+    dirs = {k: os.path.join(root, k) for k in (
+        "audio", "pred_left_train", "pred_right_train", "pred_left_val",
+        "pred_right_val")}
+    for d in dirs.values():
+        os.makedirs(d)
+    rng = np.random.default_rng(seed)
+    for i in range(GAN_WORLD_CLIPS):
+        vid = f"clip{i:03d}"
+        _, binaural = _world_audio(seed + 31 * i)
+        save_wav(os.path.join(dirs["audio"], vid + ".wav"), binaural, SR)
+        mels = mel_spectrogram(torch.from_numpy(binaural).cuda()).cpu().numpy()
+        for side, mel in zip(("left", "right"), mels):
+            pred = (mel + 0.3 * rng.standard_normal(mel.shape)).astype(
+                np.float32)
+            np.save(os.path.join(dirs[f"pred_{side}_train"], vid + ".npy"),
+                    pred)
+            if i < GAN_WORLD_VAL:
+                np.save(os.path.join(dirs[f"pred_{side}_val"], vid + ".npy"),
+                        pred)
+    return {"clips": GAN_WORLD_CLIPS, "val_mel_pairs": GAN_WORLD_VAL,
+            "seconds_each": CLIP_SECONDS, "mel_shape": list(mels.shape[1:]),
+            "write_s": time.perf_counter() - t0, **dirs}
+
+
+def phase_data_check(world: str, workdir: str, prebuilt: bool) -> dict:
+    """The data layer on this machine: the native WAV decoder is built here
+    and decodes seeded 16-bit and float WAVs exactly as scipy does (through
+    ``load_wav``); a ``DataLoader`` batch of the RealBinaural val split with
+    ``shuffle=False`` equals ``default_collate`` of the dataset's items in
+    order; every frame slot with a valid detection is non-zero (Pillow).
+    ``prebuilt``: the decoder's library was there before this run (an
+    earlier phase's ``load_wav`` builds it otherwise)."""
+    from scipy.io import wavfile
+
+    from diffbinaural_tpu_torch import native
+    from diffbinaural_tpu_torch.data import (DataLoader, RealBinauralDataset,
+                                             default_collate)
+    from diffbinaural_tpu_torch.data.audio_io import load_wav, save_wav
+
+    if not native.available():
+        fail(f"data_check: the native WAV decoder did not build: "
+             f"{native.build_error()}")
+    mono, binaural = _world_audio(41)
+    files = {"pcm16_stereo.wav": None, "float_mono.wav": None}
+    save_wav(os.path.join(workdir, "pcm16_stereo.wav"), binaural, SR)
+    wavfile.write(os.path.join(workdir, "float_mono.wav"), SR, mono)
+    for name in files:
+        path = os.path.join(workdir, name)
+        if native.load_wav_native(path) is None:
+            fail(f"data_check: the native decoder refused {name}")
+        got, sr = load_wav(path)
+        _, raw = wavfile.read(path)
+        want = (raw.astype(np.float32) / 32768.0 if raw.dtype == np.int16
+                else raw.astype(np.float32))
+        want = want.T if want.ndim == 2 else want
+        if sr != SR or got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"data_check: load_wav of {name} differs from scipy's decode")
+        files[name] = list(got.shape)
+
+    ds = RealBinauralDataset(
+        csv_file=os.path.join(world, "splits", "val.csv"), data_root=world,
+        detection_csv=os.path.join(world, "action_detection_results",
+                                   "detection_results.csv"),
+        split="val", num_frames=FRAMES, max_sources=N_SOURCES)
+    loader = DataLoader(ds, batch_size=TRAIN_BATCH, shuffle=False,
+                        drop_last=False, num_workers=16)
+    t0 = time.perf_counter()
+    batch = next(iter(loader))
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = default_collate([ds[i] for i in range(TRAIN_BATCH)])
+    serial_s = time.perf_counter() - t0
+    for k, v in want.items():
+        if not np.array_equal(batch[k], v):
+            fail(f"data_check: the loader's batch differs from "
+                 f"default_collate of the items at key {k}")
+    valid = ~batch["mask"]                                       # (B, T, N)
+    slot_max = np.abs(batch["frames"]).max(axis=(1, 4, 5))       # (B, T, N)
+    empty = int((valid & (slot_max == 0)).sum())
+    if _have_pillow() and (empty or not valid.any()):
+        fail(f"data_check: {empty} frame slots with a valid detection are "
+             f"zero ({int(valid.sum())} valid)")
+    out = {"phase": "data_check", "native_decoder": True,
+           "native_library": native.library_path().name,
+           "native_built_in_this_run": not prebuilt, "wavs": files,
+           "load_wav_equals_scipy": True,
+           "batch_shapes": {k: list(v.shape) for k, v in batch.items()},
+           "loader_batch_equals_collate": True, "pillow": _have_pillow(),
+           "valid_slots": int(valid.sum()), "zero_valid_slots": empty,
+           "loader_first_batch_s": batch_s, "serial_batch_s": serial_s,
+           "loader_workers": 16, "sync": "host clock"}
+    emit(out)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_first_step(common):
+    """Wrap ``common.make_stage1_train_step`` so that the first step a
+    trainer takes is recorded: the parameters before and after it, the
+    batch it was given and its generator's state.  A comparison aid of
+    this script; the step itself runs unchanged."""
+    make, record = common.make_stage1_train_step, {}
+
+    def params(state):
+        return {f"{k}.{n}": p.detach().clone()
+                for k, m in (("unet", state.unet), ("frame", state.visual))
+                for n, p in m.named_parameters()}
+
+    def recording_make(*args, **kwargs):
+        init_fn, step_fn = make(*args, **kwargs)
+        record.update(args=args, kwargs=kwargs)
+
+        def step(state, batch, generator=None, **draws):
+            first = "after" not in record
+            if first:
+                record.update(before=params(state), batch=batch,
+                              generator_state=generator.get_state(),
+                              lr_scale=state.lr_scale)
+            out = step_fn(state, batch, generator=generator, **draws)
+            if first:
+                record["after"] = params(out[0])
+            return out
+
+        return init_fn, step
+
+    common.make_stage1_train_step = recording_make
+    try:
+        yield record
+    finally:
+        common.make_stage1_train_step = make
+
+
+def _cli_quietly(fn, *args, **kwargs):
+    """Run a CLI with its per-step printing kept out of this script's
+    output (one JSON line per phase)."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def _timings(trainers) -> dict:
+    step = [s for t in trainers for s in t.timings["step_s"]]
+    wait = [s for t in trainers for s in t.timings["wait_s"]]
+    return {"seconds_per_step": statistics.median(step),
+            "seconds_per_step_runs": step,
+            "loader_wait_s_per_step": statistics.median(wait),
+            "loader_wait_s_runs": wait,
+            "loader_wait_share": sum(wait) / sum(step)}
+
+
+def _same_modules(name, got: dict, want: dict) -> int:
+    """Tensors of two ``{name: tensor}`` maps equal bit for bit."""
+    if got.keys() != want.keys():
+        fail(f"{name}: parameter names differ")
+    for k, v in want.items():
+        if not torch.equal(got[k], v):
+            err = (got[k].float() - v.float()).abs().max().item()
+            fail(f"{name}: {k} differs by {err:.3e} (bit for bit expected)")
+    return len(want)
+
+
+def _named(**modules) -> dict:
+    return {f"{k}.{n}": p.detach() for k, m in modules.items()
+            for n, p in m.named_parameters()}
+
+
+def phase_train_cli_stage1(world: str, workdir: str) -> dict:
+    """``cli.train_realbinaural.main`` at full width on the synthetic world:
+    ``ClipPos2D`` over ViT-B/32, the dim-64 UNet (float32, as the JAX
+    trainer builds it), ``--num_frames 1 --max_sources 4``, batch 16, one
+    epoch (2 steps) and the DDIM-25 validation of 16 clips; then
+    ``--mode eval --num_epoch 2`` on the same ``--ckpt`` (resume at epoch 1
+    with the saved parameters bit for bit); then ``--num_epoch 2`` (epoch
+    1 trained from the resumed parameters).  All under
+    ``deterministic_algorithms()``.  The first CLI step is held bit for bit
+    against ``step_fn`` called directly on the same batch, state and seed,
+    which is then timed on that batch (the step without the loader)."""
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.cli import common, train_realbinaural
+    from diffbinaural_tpu_torch.models import build_unet as build
+    from diffbinaural_tpu_torch.models.visual import build_visual
+    from diffbinaural_tpu_torch.train import make_stage1_train_step
+
+    ck = os.path.join(workdir, "ckpt_stage1")
+    argv = ["--id", "chip", "--arch_frame", "clip_pos2d", "--ckpt", ck,
+            "--list_train", os.path.join(world, "splits", "train.csv"),
+            "--list_val", os.path.join(world, "splits", "val.csv"),
+            "--data_root", world, "--num_frames", "1", "--max_sources", "4",
+            "--batch_size_per_gpu", str(TRAIN_BATCH), "--eval_epoch", "1",
+            "--num_val", str(WORLD_VAL)]
+    out = {"phase": "train_cli_stage1", "argv": argv,
+           "unet_dtype": "fp32", "encoder_dtype": "fp32", "tf32": False,
+           "deterministic_algorithms": True}
+    with deterministic_algorithms():
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with recorded_first_step(common) as rec:
+            t0 = time.perf_counter()
+            first = _cli_quietly(train_realbinaural.main,
+                                    argv + ["--num_epoch", "1"])
+            out["run1_s"] = time.perf_counter() - t0
+        counts1 = ops.launch_counts()
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        steps1 = first.state.step
+        if steps1 != WORLD_TRAIN // TRAIN_BATCH:
+            fail(f"train_cli_stage1: {steps1} steps in epoch 0")
+        files = sorted(os.listdir(os.path.join(ck, "chip")))
+        for f in ("frame_000000", "unet_000000", "history_000000",
+                  "frame_best.pth", "unet_latest.pth"):
+            if f not in files:
+                fail(f"train_cli_stage1: no {f} after epoch 0 ({files})")
+        mel_l2 = first.history["val_mel_l2"]
+        if len(mel_l2) != 1 or not np.isfinite(mel_l2[0]):
+            fail(f"train_cli_stage1: validation mel L2 {mel_l2}")
+
+        # the first step against step_fn called directly
+        kw = rec["kwargs"]
+        unet = build(seed=1234)
+        visual = build_visual("clip_pos2d", seed=1234)
+        fresh = _named(unet=unet, frame=visual)
+        _same_modules("train_cli_stage1: the CLI's initial parameters "
+                      "against the seeded build functions", rec["before"], fresh)
+        init_fn, step_fn = make_stage1_train_step(
+            unet, visual, *rec["args"][2:], **kw)
+        gen = torch.Generator(device="cuda").manual_seed(1234)
+        if not torch.equal(gen.get_state(), rec["generator_state"]):
+            fail("train_cli_stage1: the CLI's generator is not seeded by "
+                 "--seed")
+        state = init_fn()
+        state.lr_scale = rec["lr_scale"]
+        ops.reset_launch_counts()
+        step_fn(state, rec["batch"], generator=gen)
+        torch.cuda.synchronize()
+        direct_counts = ops.launch_counts()
+        n = _same_modules("train_cli_stage1: the first CLI step against "
+                          "step_fn", _named(unet=unet, frame=visual),
+                          rec["after"])
+        seconds = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step_fn(state, rec["batch"], generator=gen)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        del unet, visual, state, fresh, rec
+        torch.cuda.empty_cache()
+
+        # resume: --mode eval restores and validates, no step
+        final = _named(unet=first.net_unet, frame=first.net_frame)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        evaluated = _cli_quietly(
+            train_realbinaural.main,
+            argv + ["--num_epoch", "2", "--mode", "eval"])
+        eval_s = time.perf_counter() - t0
+        eval_counts = ops.launch_counts()
+        if evaluated.start_epoch != 1 or evaluated.state.step != 0:
+            fail(f"train_cli_stage1: resumed at epoch "
+                 f"{evaluated.start_epoch}, step {evaluated.state.step}")
+        _same_modules("train_cli_stage1: resumed parameters",
+                      _named(unet=evaluated.net_unet,
+                             frame=evaluated.net_frame), final)
+        del evaluated, final
+        torch.cuda.empty_cache()
+        second = _cli_quietly(train_realbinaural.main,
+                                 argv + ["--num_epoch", "2"])
+    if second.start_epoch != 1 or second.history["epoch"] != 1:
+        fail(f"train_cli_stage1: the second run trained epochs "
+             f"{second.start_epoch}..{second.history['epoch']}")
+    per_step = {k: v // steps1 for k, v in counts1.items()
+                if k in TRAINING_KERNELS}
+    if per_step != {"flash_sdpa_with_lse": ATTN_PER_STEP,
+                    "flash_sdpa_backward": ATTN_PER_STEP}:
+        fail(f"train_cli_stage1: launches {counts1}")
+    val_k1 = DDIM_STEPS * ATTN_PER_STEP * -(-WORLD_VAL // TRAIN_BATCH)
+    if eval_counts != launches(flash_sdpa=val_k1) or \
+            counts1["flash_sdpa"] != val_k1:
+        fail(f"train_cli_stage1: validation launches {eval_counts}, "
+             f"run 1 {counts1}")
+    if direct_counts != launches(flash_sdpa_with_lse=ATTN_PER_STEP,
+                                 flash_sdpa_backward=ATTN_PER_STEP):
+        fail(f"train_cli_stage1: the direct step launched {direct_counts}")
+    out.update(
+        steps=steps1 + second.state.step, batch=TRAIN_BATCH,
+        clip_images_per_step=TRAIN_BATCH * FRAMES * N_SOURCES,
+        **_timings([first, second]),
+        direct_step_s=statistics.median(seconds),
+        direct_step_s_runs=seconds,
+        direct_sync="synchronize + host clock around step_fn on the "
+                    "recorded batch, 3 steps after the checked one",
+        timing="host clock: wait = from the previous step's end to the "
+               "batch in hand; step = wait + copy to the card + step_fn + "
+               "the loss read back (a synchronisation)",
+        first_step_equals_step_fn=True, parameters_checked=n,
+        resume_bit_for_bit=True, resume_epoch=1, eval_run_s=eval_s,
+        val_mel_l2=[mel_l2[0], second.history["val_mel_l2"][-1]],
+        train_losses=list(second.history["train_loss"]),
+        first_run_train_loss=first.history["train_loss"],
+        launches=counts1, launches_per_step=per_step,
+        launches_per_validation_pass=eval_counts,
+        validation_clips=WORLD_VAL, checkpoints=files)
+    del first, second
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_remat_check() -> None:
+    """One stage-2 D+G step at the production configuration in float32
+    (TF32 off), batch 2 x 16384, with ``remat`` on against off from one
+    state, with deterministic algorithms: the metrics, every gradient and
+    every updated parameter within ``STAGE2_REPEAT_TOL`` of its own scale
+    (the recomputed forward is the same forward)."""
+    from diffbinaural_tpu_torch import ops
+
+    b = 2
+    h, gen, mpd, mrd = build_gan(torch.float32, seed=51)
+    modules = {"generator": gen, "mpd": mpd, "mrd": mrd}
+    start = {k: {n: v.clone() for n, v in m.state_dict().items()}
+             for k, m in modules.items()}
+    batch = gan_batch(h, b, seed=52)
+
+    def run(remat):
+        for k, m in modules.items():
+            m.load_state_dict(start[k])
+        init_fn, step_fn = make_gan_step(h, gen, mpd, mrd, remat=remat)
+        ops.reset_launch_counts()
+        _, metrics = step_fn(init_fn(), batch)
+        torch.cuda.synchronize()
+        grads = {f"{k}.{n}": p.grad.clone() for k, m in modules.items()
+                 for n, p in m.named_parameters()}
+        params = _named(**modules)
+        return ({k: float(v) for k, v in metrics.items()}, grads,
+                {k: v.clone() for k, v in params.items()},
+                ops.launch_counts())
+
+    with deterministic_algorithms():
+        m_on, g_on, p_on, c_on = run(True)
+        m_off, g_off, p_off, c_off = run(False)
+    worst = {"metrics": 0.0, "grads": 0.0, "params": 0.0}
+    for k in GAN_METRICS:
+        worst["metrics"] = max(worst["metrics"], abs(m_on[k] - m_off[k])
+                               / max(abs(m_off[k]), 1e-30))
+    for part, on, off in (("grads", g_on, g_off), ("params", p_on, p_off)):
+        for k, v in off.items():
+            scale = max(v.abs().max().item(), 1e-30)
+            worst[part] = max(worst[part],
+                              (on[k] - v).abs().max().item() / scale)
+    if max(worst.values()) > STAGE2_REPEAT_TOL:
+        fail(f"remat_check: remat on against off differs: {worst} "
+             f"(limit {STAGE2_REPEAT_TOL:.0e} of the own scale)")
+    # float32: K3b's products are the library's, not the dz / dW kernels
+    want_on = launches(**dict(REMAT_GAN_PER_STEP, snake_conv_dgrad=0,
+                              snake_conv_wgrad=0))
+    if c_on != want_on or c_off != gan_launches(1, bf16=False):
+        fail(f"remat_check: launches {c_on} (remat) {c_off} (no remat)")
+    emit({"phase": "remat_check", "dtype": "fp32", "tf32": False, "batch": b,
+          "segment": GAN_SEGMENT, "config": GAN_CONFIG,
+          "deterministic_algorithms": True,
+          "worst_rel_diff_of_own_scale": worst,
+          "tol_of_own_scale": STAGE2_REPEAT_TOL, "metrics_remat": m_on,
+          "launches_remat": c_on, "launches_no_remat": c_off})
+    del gen, mpd, mrd, modules, start, g_on, g_off, p_on, p_off
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def recorded_saves(gan_common):
+    """Wrap ``GanTrainer.save`` so that each checkpoint's parameters are
+    also kept in memory, and time ``save`` and ``validate`` (host clock, a
+    synchronisation before each), keyed by the step: comparison and timing
+    aids of this script."""
+    trainer = gan_common.GanTrainer
+    save, validate = trainer.save, trainer.validate
+    record = {"params": {}, "save_s": {}, "validate_s": {}}
+
+    def recording_save(self, epoch):
+        record["params"][self.steps] = {k: v.clone() for k, v in _named(
+            gen=self.gen, mpd=self.mpd, mrd=self.mrd).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(self, epoch)
+        record["save_s"][self.steps] = time.perf_counter() - t0
+
+    def timed_validate(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = validate(self, *args, **kwargs)
+        record["validate_s"][self.steps] = time.perf_counter() - t0
+        return out
+
+    trainer.save, trainer.validate = recording_save, timed_validate
+    try:
+        yield record
+    finally:
+        trainer.save, trainer.validate = save, validate
+
+
+def phase_train_cli_stage2(world: dict, workdir: str) -> dict:
+    """``cli.train_binaural_both.main`` on the production config as shipped
+    (B = 32 x 16384, so ``remat`` is on; bfloat16 generator, float32
+    discriminators), one epoch of the 96 items = 3 steps, a checkpoint at
+    step 2 and the validation at step 3; ``--evaluate True`` on the same
+    directory (resume at step 3 with the step-2 parameters bit for bit);
+    then ``cli.train_binaural_mel.main`` for one step (16 mel pairs = 32
+    items) from there."""
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.cli import (gan_common, train_binaural_both,
+                                            train_binaural_mel)
+    from diffbinaural_tpu_torch.core.config import load_hparams_from_json
+
+    h = load_hparams_from_json(GAN_CONFIG)
+    ck = os.path.join(workdir, "ckpt_stage2")
+    common_argv = ["--config", GAN_CONFIG, "--checkpoint_path", ck,
+                   "--audio_dir", world["audio"], "--stdout_interval", "1",
+                   "--summary_interval", "1000", "--checkpoint_interval", "2",
+                   "--validation_interval", "3", "--training_epochs", "1"]
+    both_argv = common_argv + [
+        "--mel_pred_left_train_dir", world["pred_left_train"],
+        "--mel_pred_right_train_dir", world["pred_right_train"],
+        "--mel_pred_left_val_dir", world["pred_left_val"],
+        "--mel_pred_right_val_dir", world["pred_right_val"]]
+    mel_argv = common_argv + [
+        "--mel_left_train_dir", world["pred_left_val"],
+        "--mel_right_train_dir", world["pred_right_val"],
+        "--mel_left_val_dir", world["pred_left_val"],
+        "--mel_right_val_dir", world["pred_right_val"]]
+    steps = 2 * GAN_WORLD_CLIPS // h["batch_size"]
+    out = {"phase": "train_cli_stage2", "config": GAN_CONFIG,
+           "batch": h["batch_size"], "segment": h["segment_size"],
+           "generator_dtype": "bf16", "discriminator_dtype": "fp32",
+           "tf32": False}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with recorded_saves(gan_common) as saved:
+        t0 = time.perf_counter()
+        try:
+            both = _cli_quietly(train_binaural_both.main, both_argv)
+        except torch.cuda.OutOfMemoryError as exc:
+            fail(f"train_cli_stage2: batch {h['batch_size']} with remat "
+                 f"does not fit the card: {exc}")
+        out["run1_s"] = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    if not both.remat or both.steps != steps:
+        fail(f"train_cli_stage2: remat {both.remat}, {both.steps} steps")
+    files = sorted(os.listdir(ck))
+    for f in ("config.json", "g_00000002", "do_00000002"):
+        if f not in files:
+            fail(f"train_cli_stage2: no {f} ({files})")
+    validations = steps // 3  # --validation_interval 3
+    predicted = {k: steps * REMAT_GAN_PER_STEP.get(k, 0)
+                 + validations * GAN_VAL_ITEMS * GAN_VAL_PER_ITEM.get(k, 0)
+                 for k in GAN_KERNELS + ("fused_alias_free_snake",
+                                         "fused_snake_conv")}
+    never = [k for k in predicted if counts[k] < 1]
+    if never:
+        fail(f"train_cli_stage2: kernels never launched: {never}")
+    timings = _timings([both])
+    extra = [saved["save_s"].get(i, 0.0) + saved["validate_s"].get(i, 0.0)
+             for i in range(1, steps + 1)]
+    bare = [t - x for t, x in zip(both.timings["step_s"], extra)]
+    del both
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    evaluated = _cli_quietly(train_binaural_both.main,
+                                both_argv + ["--evaluate", "True"])
+    val_counts = ops.launch_counts()
+    if evaluated.steps != 3 or evaluated.last_epoch != 0:
+        fail(f"train_cli_stage2: resumed at step {evaluated.steps}, epoch "
+             f"{evaluated.last_epoch}")
+    n = _same_modules("train_cli_stage2: resumed parameters",
+                      _named(gen=evaluated.gen, mpd=evaluated.mpd,
+                             mrd=evaluated.mrd), saved["params"][2])
+    del evaluated
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    mel = _cli_quietly(train_binaural_mel.main, mel_argv)
+    mel_counts = ops.launch_counts()
+    if mel.steps != 4 or len(mel.timings["step_s"]) != 1:
+        fail(f"train_cli_stage2: train_binaural_mel ended at step "
+             f"{mel.steps} after {len(mel.timings['step_s'])} steps")
+    if "g_00000004" not in os.listdir(ck):
+        fail("train_cli_stage2: train_binaural_mel wrote no g_00000004")
+    timings_mel = _timings([mel])
+    del mel
+    torch.cuda.empty_cache()
+    out.update(
+        steps=steps, remat=True, **timings,
+        seconds_per_step_without_save_and_validation=statistics.median(bare),
+        seconds_per_step_without_save_and_validation_runs=bare,
+        save_s=saved["save_s"], validate_s=saved["validate_s"],
+        train_binaural_mel_step_s=timings_mel["seconds_per_step"],
+        train_binaural_mel_wait_s=timings_mel["loader_wait_s_per_step"],
+        timing="host clock: wait = from the previous step's end to the "
+               "batch in hand; step = wait + copy to the card + step_fn + "
+               "the metrics printed (a synchronisation) + any checkpoint "
+               "or validation that step triggers",
+        resume_bit_for_bit=True, parameters_checked=n,
+        launches=counts, launches_predicted=predicted,
+        launches_match_prediction=all(counts[k] == v
+                                      for k, v in predicted.items()),
+        launches_per_step_predicted={k: v for k, v in
+                                     REMAT_GAN_PER_STEP.items()},
+        launches_per_validation=val_counts,
+        launches_train_binaural_mel_step=mel_counts, checkpoints=files)
+    emit(out)
+    return out
+
+
+def kernels_line(cases, counts, by_path) -> dict:
     """One entry per kernel, at its heaviest shape on its path (bfloat16,
-    as both paths run it)."""
+    as both paths run it); ``launches`` from the path that gives the kernel
+    its count, ``launches_by_path`` from every path that launched it."""
     pick = {
         "flash_sdpa": lambda c: c["shape"] == [8, 4, 6400, 32],
         "flash_sdpa_with_lse": lambda c: c["shape"] == [TRAIN_BATCH, 4, 6400, 32],
@@ -2372,6 +3004,8 @@ def kernels_line(cases, counts) -> dict:
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "shape": case["shape"], "dtype": case["dtype"],
+            "launches_by_path": {path: c[name] for path, c in by_path.items()
+                                 if c.get(name)},
         })
     return {"kernels": rows}
 
@@ -2390,6 +3024,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t_start = time.time()
+    from diffbinaural_tpu_torch import native
+
+    native_prebuilt = native.library_path().exists()
     info = phase_device()
     phase_build()
     cases = phase_kernels()
@@ -2405,10 +3042,30 @@ def main() -> None:
     phase_train_check()
     train_out = phase_train_path(args.trace)
     phase_visual_check()
-    phase_visual_train_path(args.trace)
+    visual_out = phase_visual_train_path(args.trace)
     phase_visual_serve()
     phase_stage2_check()
     gan_out = phase_stage2_path(args.trace)
+    with tempfile.TemporaryDirectory() as workdir:
+        world1 = write_stage1_world(os.path.join(workdir, "world1"), seed=61)
+        world2 = write_stage2_world(os.path.join(workdir, "world2"), seed=62)
+        emit({"phase": "worlds", "stage1": world1,
+              "stage2": {k: v for k, v in world2.items() if "/" not in str(v)}})
+        phase_data_check(os.path.join(workdir, "world1"), workdir,
+                         native_prebuilt)
+        cli1 = phase_train_cli_stage1(os.path.join(workdir, "world1"), workdir)
+        phase_remat_check()
+        cli2 = phase_train_cli_stage2(world2, workdir)
+    emit({"phase": "train_cli_beside_the_paths",
+          "stage1_cli_step_s": cli1["seconds_per_step"],
+          "stage1_cli_loader_wait_s": cli1["loader_wait_s_per_step"],
+          "stage1_direct_step_s_fp32": cli1["direct_step_s"],
+          "visual_train_path_step_s_bf16_unet": visual_out["seconds_per_step"],
+          "stage2_cli_step_s_b32_remat": cli2["seconds_per_step"],
+          "stage2_cli_loader_wait_s": cli2["loader_wait_s_per_step"],
+          "stage2_path_step_s_b16": gan_out["seconds_per_step"],
+          "note": "same call; the CLI steps include the loader's wait, the "
+                  "copy to the card and the loss read back"})
     # each kernel's count comes from the run of its own path
     counts = {k: main_out["launches"][k] for k in SERVING_KERNELS}
     counts.update({k: train_out["launches"][k] for k in TRAINING_KERNELS})
@@ -2416,7 +3073,11 @@ def main() -> None:
     never = [k for k, v in counts.items() if v < 1]
     if never:
         fail(f"kernels never launched on their path: {never}")
-    emit(kernels_line(cases, counts))
+    emit(kernels_line(cases, counts, {
+        "main_path": main_out["launches"], "train_path": train_out["launches"],
+        "stage2_path": gan_out["launches"],
+        "train_cli_stage1": cli1["launches"],
+        "train_cli_stage2": cli2["launches"]}))
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -101,6 +101,12 @@ def visual_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return _state_dict(tree)
 
 
+def position_embedding_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Parameters of the JAX ``data.position_utils.Position2DEmbedding``
+    (``proj_1`` / ``proj_2`` Dense layers) -> state_dict of the port's."""
+    return _state_dict(tree)
+
+
 def _leaf_to_flax(name: str, value: np.ndarray):
     """Inverse of :func:`_leaf`."""
     if name == "weight":

@@ -1,5 +1,6 @@
-"""Config ingestion: JSON + AttrDict, and the typed dataclasses of the
-inference and stage-1 training paths and of the CLIP towers.  Own copy of
+"""Config ingestion: JSON + AttrDict, ``build_env``, and the typed
+dataclasses of the inference and stage-1 training paths and of the CLIP
+towers.  Own copy of
 the framework-free definitions in ``diffbinaural_tpu/core/config.py`` — the
 port never imports that package.
 """
@@ -7,6 +8,8 @@ port never imports that package.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 from dataclasses import dataclass
 
 
@@ -21,6 +24,15 @@ class AttrDict(dict):
 def load_hparams_from_json(path) -> AttrDict:
     with open(path) as f:
         return AttrDict(json.load(f))
+
+
+def build_env(config, config_name, path):
+    """Copy the config file ``config`` into the checkpoint directory
+    ``path`` as ``config_name`` (unless it is that file already)."""
+    t_path = os.path.join(path, config_name)
+    if config != t_path:
+        os.makedirs(path, exist_ok=True)
+        shutil.copyfile(config, t_path)
 
 
 @dataclass(frozen=True)

@@ -1,10 +1,12 @@
 """Audio IO + resampling on the host (numpy/scipy) — counterpart of
-``diffbinaural_tpu/data/audio_io.py``: ``scipy.io.wavfile`` for PCM and
-float WAVs, polyphase kaiser resampling, and the x0.95 peak normalisation
-the loaders apply.
+``diffbinaural_tpu/data/audio_io.py``: the native C++ decoder
+(``diffbinaural_tpu_torch/native``) for ``.wav`` files, ``scipy.io.wavfile``
+for the files it refuses and where it was not built, polyphase kaiser
+resampling, and the x0.95 peak normalisation the loaders apply.
 
-Not ported: the JAX package's optional C++ decoder (its ``native/``
-sub-package); every file goes through scipy here.
+The JAX ``load_wav`` swallows every error of its native branch.  Here a
+failed build is printed once and reported by ``native.available()`` /
+``native.build_error()``; a file the decoder refuses goes through scipy.
 """
 
 from __future__ import annotations
@@ -17,11 +19,24 @@ import numpy as np
 from scipy.io import wavfile
 from scipy.signal import resample_poly
 
+from .. import native
+
 MAX_WAV_VALUE = 32767.0
 
 
 def load_wav(path: str, target_sr: Optional[int] = None) -> Tuple[np.ndarray, int]:
-    """-> (audio float32 in [-1, 1], sr).  Shape (T,) mono or (C, T)."""
+    """-> (audio float32 in [-1, 1], sr).  Shape (T,) mono or (C, T).
+
+    A ``.wav`` goes through the native decoder when it is built (decode and
+    int -> float conversion off the GIL); scipy reads the rest."""
+    if path.lower().endswith(".wav"):
+        got = native.load_wav_native(path)
+        if got is not None:
+            data, sr = got
+            if target_sr is not None and sr != target_sr:
+                data = resample(data, sr, target_sr)
+                sr = target_sr
+            return data, sr
     sr, data = wavfile.read(path)
     if data.dtype == np.int16:
         data = data.astype(np.float32) / 32768.0

@@ -49,7 +49,13 @@ def test_every_module_imports_without_jax():
                 "core.checkpoint", "cli", "cli.common", "models.visual",
                 "data.clip_tokenizer", "cli.generate_binaural",
                 "cli.inference_e2e", "cli.inference_binaural",
-                "cli.inference_diffbinaural_mels"):
+                "cli.inference_diffbinaural_mels", "native",
+                "data.meldataset", "data.binaural", "data.stage1",
+                "data.loader", "data.video_transforms",
+                "data.position_utils", "utils", "utils.helpers",
+                "utils.summary", "cli.arguments", "cli.gan_common",
+                "cli.train_realbinaural", "cli.train_fairplay",
+                "cli.train_binaural_mel", "cli.train_binaural_both"):
         assert f"diffbinaural_tpu_torch.{sub}" in names
     code = (
         "import importlib, sys\n"
@@ -111,7 +117,10 @@ def _no_card():
                                    "train_step", "build_discriminators",
                                    "stage2_train_step", "generate_binaural",
                                    "inference_e2e", "inference_binaural",
-                                   "inference_diffbinaural_mels"])
+                                   "inference_diffbinaural_mels",
+                                   "train_realbinaural", "train_fairplay",
+                                   "train_binaural_mel",
+                                   "train_binaural_both"])
 def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
     _no_card()
     from diffbinaural_tpu_torch.diffusion import GaussianDiffusion
@@ -125,7 +134,9 @@ def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
     from diffbinaural_tpu_torch.cli import (generate_binaural,
                                             inference_binaural,
                                             inference_diffbinaural_mels,
-                                            inference_e2e)
+                                            inference_e2e, train_binaural_both,
+                                            train_binaural_mel, train_fairplay,
+                                            train_realbinaural)
 
     calls = {
         "build_unet": lambda: build_unet(UnetConfig(dim=16)),
@@ -152,6 +163,14 @@ def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
         "inference_diffbinaural_mels": lambda: inference_diffbinaural_mels.main(
             ["--input_mels_left_dir", "l", "--input_mels_right_dir", "r",
              "--checkpoint_file", "g"]),
+        "train_realbinaural": lambda: train_realbinaural.main(
+            ["--data_root", "missing"]),
+        "train_fairplay": lambda: train_fairplay.main(
+            ["--data_root", "missing"]),
+        "train_binaural_mel": lambda: train_binaural_mel.main(
+            ["--config", "missing.json"]),
+        "train_binaural_both": lambda: train_binaural_both.main(
+            ["--config", "missing.json"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
