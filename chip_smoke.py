@@ -34,7 +34,14 @@ weights from a seed:
     (``configs/bigvgan_binaural_22khz_80band_256x.json``: the full-width
     generator, MPD and sub-band CQTD) — one D+G step through the kernels
     against the same through the plain versions (float32, batch 2), then
-    optimiser steps with a bfloat16 generator at batch 16 x 16384 samples.
+    optimiser steps with a bfloat16 generator at batch 16 x 16384 samples;
+  * training from files — the train CLIs on synthetic worlds on disk;
+  * evaluation on a test split — checkpoints written by the port (the
+    UNet, ``ClipPos2D`` over ViT-B/32, the production generator), the four
+    test CLIs on the stage-1 world's val clips (``test_realbinaural`` bit
+    for bit against ``dump_clip_mels``), ``inference_e2e`` on their mels,
+    and the two evaluate CLIs on the card against the same on the CPU;
+    K1 in float32 at the test CLIs' shapes.
 
 Each path's launch counts are set to 0 before it and checked after it.
 Every phase prints one JSON line; any failure exits non-zero.  There is no
@@ -2973,6 +2980,502 @@ def phase_train_cli_stage2(world: dict, workdir: str) -> dict:
     return out
 
 
+# ------------------------------------------- evaluation on a test split
+
+# the test split: the first EVAL_CLIPS val videos of the stage-1 world; a
+# 10 s clip is 861 frames = 21 windows, one sampler group (max_batch 32)
+EVAL_CLIPS, CLI_WINDOWS = 4, 21
+POS_SECONDS, POS_STEPS = 3.0, 50  # test_pos: one 3 s clip, DDIM-50
+FEW_FILES, FEW_WINDOWS = 2, 3
+K1_FP32_TOL = 2e-4  # absolute, as check_k1's float32 cases
+# card against CPU in one process: the CPU tests' tolerances
+EVAL_TOLS = {"sar": 1e-8, "sir": 1e-8, "sdr": 1e-8, "pesq_mos": 1e-9}
+EVAL_REL = 1e-10
+
+
+def check_k1_fp32_test_cli(gen) -> list:
+    """K1 in float32 at the test CLIs' shapes, (21, 4, 6400 | 1600, 32): one
+    group of a 10 s clip's 21 windows through the float32 UNet.  Against
+    its plain version in batch chunks of 3 (2e-4 absolute, as check_k1's
+    float32 cases), timed beside its float32 bound and one
+    ``F.scaled_dot_product_attention`` in float32 (TF32 off)."""
+    from diffbinaural_tpu_torch.ops import flash_sdpa, sdpa_plain
+
+    cases = []
+    for n in (6400, 1600):
+        shape = (CLI_WINDOWS, 4, n, 32)
+        q, k, v = (rand(gen, shape, torch.float32) for _ in range(3))
+        scale = shape[-1] ** -0.5
+
+        def plain():
+            return _in_batch_chunks(lambda *a: (sdpa_plain(*a, scale),), 3,
+                                    q, k, v)[0]
+
+        got = flash_sdpa(q, k, v, scale)
+        want = plain()
+        err = _compare("flash_sdpa", (shape, "fp32"), got, want, K1_FP32_TOL,
+                       False)
+        case = {"kernel": "flash_sdpa", "shape": list(shape), "dtype": "fp32",
+                "max_err": err, "tol": K1_FP32_TOL,
+                "output_scale": want.abs().max().item(),
+                "ms": time_ms(lambda: flash_sdpa(q, k, v, scale)),
+                "plain_ms": time_ms(plain, warmup=1, iters=3),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=scale)),
+                "library": "F.scaled_dot_product_attention, fp32, TF32 off"}
+        b, h, _, d = shape
+        _bound(case, 4.0 * b * h * n * n * d, 4.0 * b * h * n * d * 4, "fp32",
+               exps=float(b * h * n * n))
+        del got, want, q, k, v
+        cases.append(case)
+    emit({"phase": "k1_fp32_test_cli", "cases": cases})
+    torch.cuda.empty_cache()
+    return cases
+
+
+class RecordedClip:
+    """What ``cli.common.dump_clip_mels`` reads of a dataset, replayed from
+    the items the CLI's features function was given (no JPEG is decoded a
+    second time)."""
+
+    def __init__(self, dataset, items):
+        self.full_mel, self.starts = dataset.full_mel, dataset.starts
+        self.rows, self.items = dataset.rows, items
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+@contextlib.contextmanager
+def recorded_clips(module):
+    """Wrap ``module.dump_clip_mels`` (a test CLI's) so that each clip is
+    recorded: the dataset and the items its features function was given,
+    the encoder's seconds (synchronised around each window's call), the
+    seconds of the whole call (windows, encoder, sampler, files), the
+    launch counts it made and the mels it returned.  A comparison aid of
+    this script; the call itself runs unchanged."""
+    from diffbinaural_tpu_torch import ops
+
+    dump, records = module.dump_clip_mels, []
+
+    def recording(args, sampler, dataset, out_left, out_right,
+                  features_fn=None, **kw):
+        rec = {"items": [], "encoder_s": 0.0, "dataset": dataset}
+
+        def features(item):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feat = features_fn(item)
+            torch.cuda.synchronize()
+            rec["encoder_s"] += time.perf_counter() - t0
+            rec["items"].append(item)
+            return feat
+
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel = dump(args, sampler, dataset, out_left, out_right,
+                   features_fn=features if features_fn else None, **kw)
+        rec["seconds"] = time.perf_counter() - t0  # the mels are on the host
+        after = ops.launch_counts()
+        rec.update(mel=mel, launches={k: after[k] - before[k] for k in after})
+        records.append(rec)
+        return mel
+
+    module.dump_clip_mels = recording
+    try:
+        yield records
+    finally:
+        module.dump_clip_mels = dump
+
+
+def write_eval_checkpoints(ck: str) -> dict:
+    """The test CLIs' and ``inference_e2e``'s checkpoints, written as the
+    JAX trainers write them (``module_tree`` -> ``save_checkpoint``): the
+    dim-64 UNet (seed 71) as ``unet_best.pth`` and as the numbered
+    ``unet_000001.pth`` that ``test_pos`` scans for, ``ClipPos2D`` over
+    ViT-B/32 (seed 72) as ``frame_best.pth``, and the generator of
+    GAN_CONFIG (seed 73) as ``voc/g_00000001`` beside its config.  Returns
+    the in-memory models and the paths."""
+    import shutil
+
+    from diffbinaural_tpu_torch import models
+    from diffbinaural_tpu_torch.cli.common import module_tree
+    from diffbinaural_tpu_torch.core import checkpoint
+    from diffbinaural_tpu_torch.core.config import (VocoderConfig,
+                                                    load_hparams_from_json)
+    from diffbinaural_tpu_torch.models.visual import build_visual
+
+    t0 = time.perf_counter()
+    unet = models.build_unet(seed=71)
+    visual = build_visual("clip_pos2d", seed=72)
+    cfg = VocoderConfig.from_attrdict(load_hparams_from_json(GAN_CONFIG))
+    voc = models.build_vocoder(cfg, seed=73)
+    exp = os.path.join(ck, "eval")
+    os.makedirs(os.path.join(ck, "voc"))
+    paths = {"unet": os.path.join(exp, "unet_best.pth"),
+             "numbered": os.path.join(exp, "unet_000001.pth"),
+             "frame": os.path.join(exp, "frame_best.pth"),
+             "generator": os.path.join(ck, "voc", "g_00000001")}
+    unet_tree = module_tree(unet)
+    checkpoint.save_checkpoint(paths["unet"], unet_tree)
+    checkpoint.save_checkpoint(paths["numbered"], unet_tree)
+    checkpoint.save_checkpoint(paths["frame"], module_tree(visual))
+    checkpoint.save_checkpoint(paths["generator"],
+                               {"generator": module_tree(voc)})
+    shutil.copy(GAN_CONFIG, os.path.join(ck, "voc", "config.json"))
+    return {"unet": unet, "visual": visual, "paths": paths,
+            "write_s": time.perf_counter() - t0,
+            "bytes": {k: os.path.getsize(p) for k, p in paths.items()}}
+
+
+def _split(path: str, vids) -> str:
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["video_id", "start_time", "end_time", "action_label"])
+        w.writerows([v, "0.0", f"{CLIP_SECONDS:.1f}", "synthetic"]
+                    for v in vids)
+    return path
+
+
+def _read_csv(path: str) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def _csvs_agree(name: str, got_path: str, want_path: str) -> dict:
+    """The card's CSV against the CPU's: the same columns, rows and names,
+    each value within its metric's tolerance (EVAL_TOLS absolute, else
+    EVAL_REL relative).  Returns the worst deviation by column."""
+    got, want = _read_csv(got_path), _read_csv(want_path)
+    if got[0] != want[0] or len(got) != len(want) or len(got) < 2:
+        fail(f"{name}: columns / rows {got[0]} x {len(got)} vs "
+             f"{want[0]} x {len(want)}")
+    worst = {}
+    for g_row, w_row in zip(got[1:], want[1:]):
+        for col, g, w in zip(got[0], g_row, w_row):
+            try:
+                gv, wv = float(g), float(w)
+            except ValueError:
+                if g != w:
+                    fail(f"{name}: {col} {g!r} vs {w!r}")
+                continue
+            if not np.isfinite(gv) or not np.isfinite(wv):
+                if g != w:
+                    fail(f"{name}: {col} {g} vs {w}")
+                continue
+            err = abs(gv - wv)
+            tol = EVAL_TOLS.get(col, EVAL_TOLS.get(g_row[0]))
+            limit = tol if tol is not None else EVAL_REL * abs(wv) + 1e-15
+            if err > limit:
+                fail(f"{name}: {g_row[0]} {col}: card {gv!r} vs cpu {wv!r}")
+            key = g_row[0] if col in ("mean", "std") else col
+            worst[key] = max(worst.get(key, 0.0), err)
+    return worst
+
+
+def phase_eval_cli(world: str, workdir: str) -> dict:
+    """A trained model judged on a test split, through the CLIs a user
+    calls: ``test_realbinaural`` (the dim-64 float32 UNet, DDIM-25, one
+    group of 21 windows per 10 s clip, ``ClipPos2D`` over ViT-B/32 on each
+    window's 5 frames x 4 sources) on EVAL_CLIPS val videos of the stage-1
+    world under ``deterministic_algorithms()``, each clip bit for bit
+    against ``dump_clip_mels`` on the in-memory models; ``test_fairplay``
+    on one of them (bit for bit its ``test_realbinaural`` mels: the same
+    windows under another key); ``test_pos`` on one 3 s clip (6 windows x
+    DDIM-50, the legacy log1p normalisation); ``test_realbinaural_few``
+    (2 files x 3 windows, Pillow figures); ``inference_e2e`` on the dumped
+    mels with the production generator (float32); then
+    ``evaluate_binaural_22050 --pesq`` (BSS on) and
+    ``evaluate_mel_spectrogram_rmse`` against the world's binaural wavs,
+    on the card and with ``device="cpu"``: the two CSVs agree to the CPU
+    tests' tolerances.  Launch counts per clip / file as predicted from
+    the code; seconds per clip with the encoder's share, per vocoded file,
+    and the battery's seconds per file on the card and on the CPU."""
+    from argparse import Namespace
+
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.cli import (evaluate_binaural_22050,
+                                            evaluate_mel_spectrogram_rmse,
+                                            inference_e2e, test_fairplay,
+                                            test_pos, test_realbinaural,
+                                            test_realbinaural_few)
+    from diffbinaural_tpu_torch.cli.common import (dump_clip_mels,
+                                                   visual_apply_fn)
+    from diffbinaural_tpu_torch.data.audio_io import load_wav, save_wav
+    from diffbinaural_tpu_torch.diffusion import GaussianDiffusion
+    from diffbinaural_tpu_torch.evaluation.runner import (
+        TRIM_SAMPLES, evaluate_binaural_pair)
+    from diffbinaural_tpu_torch.infer.stage1 import (Stage1Sampler,
+                                                     window_starts)
+    from diffbinaural_tpu_torch.utils import device_memory_stats, timed
+
+    frames = int(CLIP_SECONDS * SR) // HOP
+    windows = len(window_starts(frames))
+    out = {"phase": "eval_cli", "unet_dtype": "fp32", "encoder_dtype": "fp32",
+           "generator_dtype": "fp32", "tf32": False}
+    ck = os.path.join(workdir, "ckpt_eval")
+    models = write_eval_checkpoints(ck)
+    out["checkpoints"] = {"write_s": models["write_s"],
+                          "bytes": models["bytes"]}
+    vids = [f"vid{WORLD_TRAIN + i:03d}" for i in range(EVAL_CLIPS)]
+    test_csv = _split(os.path.join(workdir, "test.csv"), vids)
+    mels = {s: os.path.join(workdir, "eval_mels", s) for s in ("left", "right")}
+
+    def test_argv(split, out):
+        return ["--data_root", world, "--list_test", split, "--ckpt", ck,
+                "--id", "eval", "--arch_frame", "clip_pos2d",
+                "--output_dir_left", out["left"],
+                "--output_dir_right", out["right"]]
+
+    torch.cuda.reset_peak_memory_stats()
+    per_clip_k1 = launches(flash_sdpa=DDIM_STEPS * ATTN_PER_STEP)  # 1 group
+    by_path = {}
+
+    # test_realbinaural on the split, each clip against dump_clip_mels
+    with deterministic_algorithms() as caught:
+        with recorded_clips(test_realbinaural) as clips:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _cli_quietly(test_realbinaural.main, test_argv(test_csv, mels))
+            cli_s = time.perf_counter() - t0
+            by_path["test_realbinaural"] = ops.launch_counts()
+        if len(clips) != EVAL_CLIPS:
+            fail(f"eval_cli: test_realbinaural dumped {len(clips)} clips")
+        unet, visual = models["unet"], models["visual"]
+        apply = visual_apply_fn(visual, "clip_pos2d")
+        sampler = Stage1Sampler(unet, GaussianDiffusion(
+            image_size=80, timesteps=1000, sampling_timesteps=DDIM_STEPS,
+            beta_schedule="cosine", auto_normalize=False))
+
+        def features(item):
+            with torch.inference_mode():
+                return apply(*(torch.from_numpy(np.ascontiguousarray(
+                    item[k]))[None].cuda() for k in ("frames", "2d_pos_data",
+                                                     "mask")))[0]
+
+        for i, rec in enumerate(clips):
+            mel = rec["mel"]
+            if (len(rec["items"]) != windows or mel.shape != (2, 80, frames)
+                    or not np.isfinite(mel).all()):
+                fail(f"eval_cli: clip {i}: {len(rec['items'])} windows, mel "
+                     f"{mel.shape}, finite {np.isfinite(mel).all()}")
+            if rec["launches"] != per_clip_k1:
+                fail(f"eval_cli: clip {i} launches {rec['launches']} != "
+                     f"{per_clip_k1}")
+            base = rec["dataset"].rows[0]["video_id"]
+            for side, m in zip(("left", "right"), mel):
+                _bit_for_bit(f"eval_cli: clip {i} {side} .npy",
+                             np.load(os.path.join(mels[side], base + ".npy")),
+                             m.astype(np.float64))
+            direct = dump_clip_mels(
+                Namespace(crop_frames=8), sampler,
+                RecordedClip(rec["dataset"], rec["items"]),
+                os.path.join(workdir, "direct_l"),
+                os.path.join(workdir, "direct_r"), features_fn=features)
+            _bit_for_bit(f"eval_cli: clip {i} CLI against dump_clip_mels",
+                         mel, direct.astype(np.float64))
+    seconds = [r["seconds"] for r in clips]
+    out["test_realbinaural"] = {
+        "clips": EVAL_CLIPS, "frames_per_clip": frames,
+        "windows_per_clip": windows, "groups": 1,
+        "ddim_steps": DDIM_STEPS, "frames_per_window": [5, 4],
+        "cli_s": cli_s, "seconds_per_clip": statistics.median(seconds[1:]),
+        "seconds_per_clip_runs": seconds,
+        "encoder_s_runs": [r["encoder_s"] for r in clips],
+        "encoder_share": statistics.median(r["encoder_s"] / r["seconds"]
+                                           for r in clips[1:]),
+        "timing": "synchronize + host clock around dump_clip_mels (the "
+                  "windows' items, the encoder, the sampler, the .npy "
+                  "files); median of the clips after the first",
+        "launches_per_clip": {k: v for k, v in per_clip_k1.items() if v},
+        "equals_dump_clip_mels": "bit for bit",
+        "deterministic_warnings": sorted({str(w.message)[:80]
+                                          for w in caught})}
+    first_mels = clips[0]["mel"]
+    del clips, sampler, apply
+    torch.cuda.empty_cache()
+
+    # test_fairplay on the first clip: the same windows, key mix_mel
+    one_csv = _split(os.path.join(workdir, "test_one.csv"), vids[:1])
+    fair = {s: os.path.join(workdir, "fair_mels", s) for s in mels}
+    with deterministic_algorithms():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _cli_quietly(test_fairplay.main, test_argv(one_csv, fair))
+        fair_s = time.perf_counter() - t0
+        by_path["test_fairplay"] = ops.launch_counts()
+    if by_path["test_fairplay"] != per_clip_k1:
+        fail(f"eval_cli: test_fairplay launches {by_path['test_fairplay']}")
+    for side, m in zip(("left", "right"), first_mels):
+        _bit_for_bit(f"eval_cli: test_fairplay {side} against "
+                     "test_realbinaural",
+                     np.load(os.path.join(fair[side], vids[0] + ".npy")),
+                     m.astype(np.float64))
+    out["test_fairplay"] = {"clips": 1, "cli_s": fair_s,
+                            "equals_test_realbinaural": "bit for bit"}
+
+    # test_pos: one 3 s clip, every window from x_T of seed 13
+    pos_wav = os.path.join(workdir, "pos", "pos0.wav")
+    save_wav(pos_wav, synthetic_clip(81)[: int(POS_SECONDS * SR)], SR)
+    pos_csv = _split(os.path.join(workdir, "test_pos.csv"), [pos_wav])
+    pos_frames = int(POS_SECONDS * SR) // HOP
+    pos_windows = len(window_starts(pos_frames))
+    pos_out = {s: os.path.join(workdir, "pos_mels", s) for s in mels}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _cli_quietly(test_pos.main, [
+        "--list_test", pos_csv, "--ckpt", ck, "--id", "eval",
+        "--output_dir_left", pos_out["left"],
+        "--output_dir_right", pos_out["right"]])
+    torch.cuda.synchronize()
+    pos_s = time.perf_counter() - t0
+    by_path["test_pos"] = ops.launch_counts()
+    expected = launches(flash_sdpa=pos_windows * POS_STEPS * ATTN_PER_STEP)
+    if by_path["test_pos"] != expected:
+        fail(f"eval_cli: test_pos {pos_windows} windows, launches "
+             f"{by_path['test_pos']} != {expected}")
+    pos_mel = np.load(os.path.join(pos_out["left"], "pos0.npy"))
+    if (pos_mel.shape != (80, pos_frames) or not np.isfinite(pos_mel).all()
+            or pos_mel.min() < 0):
+        fail(f"eval_cli: test_pos mel {pos_mel.shape}, range "
+             f"{pos_mel.min()}..{pos_mel.max()}")
+    out["test_pos"] = {"seconds": POS_SECONDS, "windows": pos_windows,
+                       "ddim_steps": POS_STEPS, "cli_s": pos_s,
+                       "checkpoint": "unet_000001.pth (scan)",
+                       "mel_range": [float(pos_mel.min()),
+                                     float(pos_mel.max())]}
+
+    # test_realbinaural_few: the mono wavs at the data root's top level
+    few_dir = os.path.join(workdir, "few")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _cli_quietly(test_realbinaural_few.main, [
+        "--data_root", os.path.join(world, "processed/mono_audios_22050Hz"),
+        "--list_test", test_csv, "--ckpt", ck, "--id", "eval",
+        "--arch_frame", "clip_pos2d", "--max_files", str(FEW_FILES),
+        "--max_windows", str(FEW_WINDOWS), "--output_dir", few_dir])
+    few_s = time.perf_counter() - t0
+    by_path["test_realbinaural_few"] = ops.launch_counts()
+    expected = launches(
+        flash_sdpa=FEW_FILES * FEW_WINDOWS * DDIM_STEPS * ATTN_PER_STEP)
+    want_files = sorted([f"{v}.txt" for v in vids[:FEW_FILES]]
+                        + [f"{v}_w{w}.png" for v in vids[:FEW_FILES]
+                           for w in range(FEW_WINDOWS)])
+    if (by_path["test_realbinaural_few"] != expected
+            or sorted(os.listdir(few_dir)) != want_files):
+        fail(f"eval_cli: test_realbinaural_few launches "
+             f"{by_path['test_realbinaural_few']}, files "
+             f"{sorted(os.listdir(few_dir))}")
+    summary = open(os.path.join(few_dir, vids[0] + ".txt")).read()
+    out["test_realbinaural_few"] = {"files": FEW_FILES,
+                                    "windows": FEW_WINDOWS, "cli_s": few_s,
+                                    "summary": summary.splitlines()}
+    del models
+    torch.cuda.empty_cache()
+
+    # the vocoder over the dumped mels
+    gen_dir = os.path.join(workdir, "generated")
+    with captured_writes(inference_e2e) as writes:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        inference_e2e.main([
+            "--input_mels_left_dir", mels["left"],
+            "--input_mels_right_dir", mels["right"],
+            "--checkpoint_file", os.path.join(ck, "voc", "g_00000001"),
+            "--output_dir", gen_dir])
+        e2e_s = time.perf_counter() - t0
+        by_path["inference_e2e"] = ops.launch_counts()
+    per_file = launches(fused_alias_free_snake=2 * ACT_PER_PASS,
+                        fused_snake_conv=2 * FUSED_PER_PASS)  # L, R apart
+    before = launches()
+    for i, w in enumerate(writes):
+        got = {k: w["counts"][k] - before[k] for k in before}
+        before = w["counts"]
+        if got != per_file or w["wav"].shape != (2, frames * HOP) or \
+                not np.isfinite(w["wav"]).all():
+            fail(f"eval_cli: inference_e2e file {i}: launches {got}, wav "
+                 f"{w['wav'].shape}")
+    if len(writes) != EVAL_CLIPS:
+        fail(f"eval_cli: inference_e2e wrote {len(writes)} wavs")
+    vocoder_s = [writes[i]["t"] - writes[i - 1]["t"]
+                 for i in range(1, EVAL_CLIPS)]
+    out["inference_e2e"] = {
+        "files": EVAL_CLIPS, "cli_s": e2e_s,
+        "seconds_per_file": statistics.median(vocoder_s),
+        "seconds_per_file_runs": vocoder_s,
+        "timing": "host clock between consecutive files' wav writes",
+        "launches_per_file": {k: v for k, v in per_file.items() if v}}
+
+    # the evaluation battery, on the card and on the CPU in this process
+    gt_dir = os.path.join(world, "processed/binaural_audios_22050Hz")
+    battery = {}
+    for dev in ("cuda", "cpu"):
+        csv_path = os.path.join(workdir, f"binaural_{dev}.csv")
+        mel_csv = os.path.join(workdir, f"mel_{dev}.csv")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _cli_quietly(evaluate_binaural_22050.main, [
+            "--generated_dir", gen_dir, "--gt_dir", gt_dir, "--pesq",
+            "--output_csv", csv_path], device=dev)
+        t1 = time.perf_counter()
+        _cli_quietly(evaluate_mel_spectrogram_rmse.main, [
+            "--pred_left_dir", mels["left"], "--pred_right_dir",
+            mels["right"], "--gt_audio_dir", gt_dir, "--output_csv",
+            mel_csv], device=dev)
+        battery[dev] = {"evaluate_binaural_22050_s": t1 - t0,
+                        "evaluate_mel_spectrogram_rmse_s":
+                            time.perf_counter() - t1,
+                        "launches": sum(ops.launch_counts().values())}
+    if battery["cuda"]["launches"] or battery["cpu"]["launches"]:
+        fail(f"eval_cli: the evaluation launched a kernel: {battery}")
+    worst = {
+        "binaural": _csvs_agree("evaluate_binaural_22050",
+                                os.path.join(workdir, "binaural_cuda.csv"),
+                                os.path.join(workdir, "binaural_cpu.csv")),
+        "binaural_summary": _csvs_agree(
+            "evaluate_binaural_22050 summary",
+            os.path.join(workdir, "binaural_cuda_summary.csv"),
+            os.path.join(workdir, "binaural_cpu_summary.csv")),
+        "mel": _csvs_agree("evaluate_mel_spectrogram_rmse",
+                           os.path.join(workdir, "mel_cuda.csv"),
+                           os.path.join(workdir, "mel_cpu.csv"))}
+    rows = _read_csv(os.path.join(workdir, "binaural_cuda.csv"))
+    # one file's battery alone: seconds per file, card against CPU
+    pred, _ = load_wav(os.path.join(gen_dir, vids[0]
+                                    + "_binaural_generated.wav"))
+    gt, _ = load_wav(os.path.join(gt_dir, vids[0] + ".wav"))
+    pair = [a[:, TRIM_SAMPLES: a.shape[1] - TRIM_SAMPLES] for a in (pred, gt)]
+    per_file_s = {}
+    for dev, iters in (("cuda", 3), ("cpu", 1)):
+        p, g = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in pair)
+        per_file_s[dev] = timed(lambda: evaluate_binaural_pair(
+            p, g, SR, True, True), warmup=1, iters=iters)["mean_s"]
+    out["evaluation"] = {
+        "files": len(rows) - 1, "columns": rows[0],
+        "card_vs_cpu": battery, "battery_s_per_file": per_file_s,
+        "battery_timing": "utils.profiling.timed of evaluate_binaural_pair "
+                          "(BSS and PESQ) on one trimmed 10 s pair: card 3 "
+                          "calls, CPU 1, after a warm-up",
+        "worst_card_vs_cpu": worst,
+        "tolerances": {"relative": EVAL_REL, **EVAL_TOLS},
+        "first_row": dict(zip(rows[0], rows[1]))}
+    out["device_memory"] = device_memory_stats()
+    out["launches"] = {k: {n: v for n, v in c.items() if v}
+                       for k, c in by_path.items()}
+    emit(out)
+    torch.cuda.empty_cache()
+    return {"by_path": by_path, **out}
+
+
 def kernels_line(cases, counts, by_path) -> dict:
     """One entry per kernel, at its heaviest shape on its path (bfloat16,
     as both paths run it); ``launches`` from the path that gives the kernel
@@ -3056,6 +3559,9 @@ def main() -> None:
         cli1 = phase_train_cli_stage1(os.path.join(workdir, "world1"), workdir)
         phase_remat_check()
         cli2 = phase_train_cli_stage2(world2, workdir)
+        k1_fp32 = check_k1_fp32_test_cli(
+            torch.Generator(device="cuda").manual_seed(91))
+        ev = phase_eval_cli(os.path.join(workdir, "world1"), workdir)
     emit({"phase": "train_cli_beside_the_paths",
           "stage1_cli_step_s": cli1["seconds_per_step"],
           "stage1_cli_loader_wait_s": cli1["loader_wait_s_per_step"],
@@ -3073,11 +3579,18 @@ def main() -> None:
     never = [k for k, v in counts.items() if v < 1]
     if never:
         fail(f"kernels never launched on their path: {never}")
-    emit(kernels_line(cases, counts, {
+    line = kernels_line(cases, counts, {
         "main_path": main_out["launches"], "train_path": train_out["launches"],
         "stage2_path": gan_out["launches"],
         "train_cli_stage1": cli1["launches"],
-        "train_cli_stage2": cli2["launches"]}))
+        "train_cli_stage2": cli2["launches"],
+        **{f"eval_{k}": v for k, v in ev["by_path"].items()}})
+    # K1 in float32, as the test CLIs run it, beside the bfloat16 row
+    next(r for r in line["kernels"] if r["name"] == "flash_sdpa")[
+        "fp32_test_cli"] = [{k: c[k] for k in (
+            "shape", "max_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for c in k1_fp32]
+    emit(line)
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -1,5 +1,5 @@
-"""Command-line entry points — counterparts of the JAX package's serving
-scripts in ``diffbinaural_tpu/cli/``, with the same flags:
+"""Command-line entry points — counterparts of the JAX package's scripts in
+``diffbinaural_tpu/cli/``, with the same flags:
 
   * ``generate_binaural``: mono wav -> binaural wav, from a stage-1 UNet
     checkpoint and a generator checkpoint;
@@ -8,7 +8,14 @@ scripts in ``diffbinaural_tpu/cli/``, with the same flags:
   * ``inference_binaural``: ``BinauralBigVGAN`` on a mel pair, a directory
     of ``*_left.npy`` / ``*_right.npy`` pairs, or stereo wavs;
   * ``inference_diffbinaural_mels``: ``BinauralBigVGAN`` over two mel
-    directories, clip-protected output.
+    directories, clip-protected output;
+  * ``test_realbinaural`` / ``test_fairplay`` / ``test_pos`` /
+    ``test_realbinaural_few``: stage 1 over a test split (the L/R mels of
+    every clip; the few-sample check's figures);
+  * ``evaluate_binaural_22050`` / ``evaluate_mel_spectrogram_rmse``: the
+    metric battery over generated wavs, the mel RMSE of predicted mels.
+
+The training CLIs (``train_*``) are the JAX trainers' as well.
 
 Each has ``main(argv=None, *, device=None)``: the card unless the caller
 passes ``device="cpu"``; without a card and without that argument it

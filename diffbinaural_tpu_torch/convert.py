@@ -107,6 +107,19 @@ def position_embedding_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor
     return _state_dict(tree)
 
 
+def norm_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Variables of a JAX norm layer (``ChannelLayerNorm``, ``PreNorm`` with
+    its ``fn``, ``BatchNorm``, ``ChannelRMSNorm``) -> state_dict of the
+    port's counterpart.  A ``batch_stats`` collection beside ``params``
+    (``BatchNorm``'s running ``mean`` / ``var``) becomes the buffers of the
+    same names."""
+    if "batch_stats" not in tree:
+        return _state_dict(tree)
+    out = _state_dict(tree["params"])
+    _walk(tree["batch_stats"], "", out)
+    return out
+
+
 def _leaf_to_flax(name: str, value: np.ndarray):
     """Inverse of :func:`_leaf`."""
     if name == "weight":

@@ -32,6 +32,7 @@ from .bigvgan import (
     remove_weight_norm,
 )
 from .layers import Conv2dNHWC, Dense, lecun_normal_
+from .norms import ChannelLayerNorm, ChannelRMSNorm
 from .unet import AudioVisualModel, Unet
 from .visual import ENCODER_REGISTRY, apply_visual, build_visual
 
@@ -120,7 +121,8 @@ def build_discriminators(h, dtype=torch.float32, seed: int = 0, device=None):
 
 
 __all__ = [
-    "AudioVisualModel", "BigVGAN", "BinauralBigVGAN", "CombinedDiscriminator",
+    "AudioVisualModel", "BigVGAN", "BinauralBigVGAN", "ChannelLayerNorm",
+    "ChannelRMSNorm", "CombinedDiscriminator",
     "ENCODER_REGISTRY", "MultiBandDiscriminator", "MultiPeriodDiscriminator",
     "MultiResolutionDiscriminator", "MultiScaleSubbandCQTDiscriminator",
     "Unet", "apply_visual", "build_discriminators", "build_unet",

@@ -10,3 +10,4 @@ from .helpers import (
     rms_normalize,
 )
 from .summary import SummaryLogger
+from .profiling import trace, timed, device_memory_stats
