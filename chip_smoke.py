@@ -41,7 +41,18 @@ weights from a seed:
     test CLIs on the stage-1 world's val clips (``test_realbinaural`` bit
     for bit against ``dump_clip_mels``), ``inference_e2e`` on their mels,
     and the two evaluate CLIs on the card against the same on the CPU;
-    K1 in float32 at the test CLIs' shapes.
+    K1 in float32 at the test CLIs' shapes;
+  * fault C4 — one ``test_realbinaural`` clip and one ``inference_e2e`` file
+    with PyTorch's TF32 defaults against the same with TF32 off, bit for bit
+    (``--fp32-paths-only`` runs the float32 CLI paths alone — the stage-1
+    train CLI, the evaluation and this check — e.g. from a copy of this
+    script beside an older tree, to compare the two in one process each).
+
+The float32 attention kernels (split-TF32 products on ``wgmma``) are timed
+beside the earlier CUDA-core kernels they replaced (``cuda_core_ms``,
+``ops/csrc_variants/flash_d32_cuda_core.cu``) and beside two bounds: the
+split-TF32 floor (3 x FLOP over the TF32 peak, ``bound_ms``) and the CUDA
+cores' floor (``cuda_core_bound_ms``).
 
 Each path's launch counts are set to 0 before it and checked after it.
 Every phase prints one JSON line; any failure exits non-zero.  There is no
@@ -91,7 +102,10 @@ import torch.nn.functional as F
 # Published dense peaks of one H100 SXM (NVIDIA data sheet); a card whose
 # power limit is below 700 W runs under them.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# "tf32": the dense TF32 tensor-core peak of an H100 SXM (data sheet).  The
+# float32 attention kernels take each float32 product as three TF32 products
+# (split TF32), so their FLOP floor is three times the FLOP over it.
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "tf32": 494.7e12}
 # exp2 results per clock per SM: the special-function unit's 16, plus the
 # FMA pipes' 128 float32 lanes over 5 instructions per exp2 in software (a
 # range split and a degree-3 polynomial take at least that many, so the rate
@@ -302,19 +316,25 @@ def phase_device() -> dict:
 
 
 TILED_K2B = None  # the earlier tiled K2b, built by phase_build (K2b's yardstick)
+# the earlier float32 attention kernels on the CUDA cores, built by
+# phase_build: the yardstick of the split-TF32 kernels (``cuda_core_ms``)
+CUDA_CORE_F32 = None
 
 
 def phase_build() -> None:
-    global TILED_K2B
+    global TILED_K2B, CUDA_CORE_F32
     from diffbinaural_tpu_torch.ops import _build
     from diffbinaural_tpu_torch.ops import alias_free_act_variants as afv
+    from diffbinaural_tpu_torch.ops import flash_d32_variants as fv
 
     t0 = time.time()
     variants = afv.start(["tiled"])
+    cuda_core = fv.start_cuda_core()
     logs = _build.build_all(verbose=True)
     for name in _build.KERNELS:
         _build.load(name)
     TILED_K2B = afv.finish(variants)["tiled"]
+    CUDA_CORE_F32 = fv.finish(cuda_core)[0][("cuda_core", "cuda_core")]
     ptxas = {name: [ln for ln in log.splitlines() if "registers" in ln
                     or "spill" in ln][:8] for name, log in logs.items()}
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
@@ -377,10 +397,16 @@ def check_k1(gen, results):
                     "tol_relative_to_output_scale": rel,
                     "output_scale": want.float().abs().max().item(),
                     "rms_err_of_output_rms": _rel_rms(got, want),
-                    "rms_tol": rms_tol}
+                    "rms_tol": rms_tol,
+                    "bit_identical_repeat": _same_bits_twice(
+                        "flash_sdpa", (shape, dt_name(dtype)), got,
+                        lambda: flash_sdpa(q, k, v, scale))}
             if shape[2] >= 1600:
                 b, h, n, d = shape
                 case["ms"] = time_ms(lambda: flash_sdpa(q, k, v, scale))
+                if dtype == torch.float32:
+                    case["cuda_core_ms"] = cuda_core_ms(
+                        lambda: flash_sdpa(q, k, v, scale))
                 case["plain_ms"] = time_ms(lambda: sdpa_plain(q, k, v, scale),
                                            warmup=1, iters=10)
                 case["library_ms"] = time_ms(
@@ -388,21 +414,28 @@ def check_k1(gen, results):
                 flops = 4.0 * b * h * n * n * d
                 nbytes = 4.0 * b * h * n * d * q.element_size()
                 _bound(case, flops, nbytes, dt_name(dtype),
-                       exps=float(b * h * n * n))
+                       exps=float(b * h * n * n),
+                       split_tf32=dtype == torch.float32)
                 case["host_us_per_call"] = _host_us_per_call(
                     lambda: flash_sdpa(q, k, v, scale))
             del got, want
             results.append(case)
 
 
-def _bound(case, flops, nbytes, dtype_name, exps=None):
+def _bound(case, flops, nbytes, dtype_name, exps=None, split_tf32=False):
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the card's peak for them.  The
     operations' floor is the FLOP over the peak of their type and, where the
     work takes exponentials, the larger of that and their count over the
     exp2 rate of the special-function unit and the FMA pipes together (they
-    run beside the tensor cores)."""
-    floors = {"flop": flops / PEAK_FLOPS[dtype_name] * 1e3,
+    run beside the tensor cores).  ``split_tf32``: float32 products taken
+    as three TF32 products on the tensor cores, the float32 attention
+    kernels' route: the FLOP floor is 3 x FLOP over the TF32 peak, and the
+    floor on the CUDA cores (FLOP over the float32 peak) is kept beside it
+    as ``cuda_core_bound_ms``."""
+    flop_floor = (3.0 * flops / PEAK_FLOPS["tf32"] if split_tf32
+                  else flops / PEAK_FLOPS[dtype_name])
+    floors = {"flop": flop_floor * 1e3,
               "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
     if exps is not None:
         floors["exp2"] = exps / EXP_PER_S * 1e3
@@ -410,6 +443,31 @@ def _bound(case, flops, nbytes, dtype_name, exps=None):
     case["bound_ms"] = max(t_ops, floors["bytes"])
     case["bound_by"] = "operations" if t_ops >= floors["bytes"] else "bytes"
     case["bound_floors_ms"] = floors
+    if split_tf32:
+        case["cuda_core_bound_ms"] = max(flops / PEAK_FLOPS["fp32"] * 1e3,
+                                         floors.get("exp2", 0.0),
+                                         floors["bytes"])
+
+
+def cuda_core_ms(fn, **kwargs) -> float:
+    """``time_ms`` of ``fn`` with the float32 attention wrappers launching
+    the earlier CUDA-core kernels in place of the split-TF32 ones."""
+    from diffbinaural_tpu_torch.ops import flash_d32_variants as fv
+
+    with fv.cuda_core_in_place(CUDA_CORE_F32):
+        return time_ms(fn, **kwargs)
+
+
+def _same_bits_twice(name, case, first, again) -> bool:
+    """A second call gives ``first``'s bits (tensors or tuples of tensors):
+    the attention kernels own their outputs (no atomics).  Fails otherwise;
+    returns True for the case's record."""
+    firsts = first if isinstance(first, tuple) else (first,)
+    second = again()
+    seconds = second if isinstance(second, tuple) else (second,)
+    if not all(torch.equal(a, b) for a, b in zip(firsts, seconds)):
+        fail(f"{name} {case}: two runs on the same inputs differ")
+    return True
 
 
 def _host_us_per_call(fn, calls: int = 50) -> float:
@@ -495,13 +553,13 @@ def check_k1_training(gen, results):
                 fail(f"flash_sdpa_with_lse {shape} {name}: output differs "
                      f"from the residual-free forward's")
             grads = flash_sdpa_backward(q, k, v, o, lse, do, scale)
-            if bf16:  # no atomics: the same bits in every run
-                again = flash_sdpa_backward(q, k, v, o, lse, do, scale)
-                for label, a, b2 in zip(("dq", "dk", "dv"), grads, again):
-                    if not torch.equal(a, b2):
-                        fail(f"flash_sdpa_backward {shape} {name}: {label} "
-                             f"differs between two runs on the same inputs")
-                del again
+            # no atomics: the same bits in every run
+            fwd_repeat = _same_bits_twice(
+                "flash_sdpa_with_lse", (shape, name), (o, lse),
+                lambda: flash_sdpa_with_lse(q, k, v, scale))
+            bwd_repeat = _same_bits_twice(
+                "flash_sdpa_backward", (shape, name), grads,
+                lambda: flash_sdpa_backward(q, k, v, o, lse, do, scale))
             grads_p = _in_batch_chunks(plain_bwd, chunk, q, k, v, o_p, lse_p, do)
             bwd_err, bwd_share, bwd_rms = _worst(
                 "flash_sdpa_backward", (shape, name),
@@ -512,10 +570,11 @@ def check_k1_training(gen, results):
             fwd = {"kernel": "flash_sdpa_with_lse", **common,
                    "max_err": fwd_err, "max_err_of_output_scale": fwd_share,
                    "rms_err_of_output_rms": fwd_rms, "lse_max_err": lse_err,
-                   "lse_tol": lse_tol}
+                   "lse_tol": lse_tol, "bit_identical_repeat": fwd_repeat}
             bwd = {"kernel": "flash_sdpa_backward", **common,
                    "max_err": bwd_err, "max_err_of_output_scale": bwd_share,
-                   "rms_err_of_output_rms": bwd_rms}
+                   "rms_err_of_output_rms": bwd_rms,
+                   "bit_identical_repeat": bwd_repeat}
             if n >= 1600:
                 iters = 5 if n > 1600 else 10
                 fwd["ms"] = time_ms(
@@ -523,6 +582,13 @@ def check_k1_training(gen, results):
                 bwd["ms"] = time_ms(
                     lambda: flash_sdpa_backward(q, k, v, o, lse, do, scale),
                     iters=iters)
+                if not bf16:
+                    fwd["cuda_core_ms"] = cuda_core_ms(
+                        lambda: flash_sdpa_with_lse(q, k, v, scale),
+                        iters=iters)
+                    bwd["cuda_core_ms"] = cuda_core_ms(
+                        lambda: flash_sdpa_backward(q, k, v, o, lse, do,
+                                                    scale), iters=iters)
                 fwd["plain_ms"] = time_ms(
                     lambda: _in_batch_chunks(plain_fwd, chunk, q, k, v),
                     warmup=1, iters=iters)
@@ -543,13 +609,13 @@ def check_k1_training(gen, results):
                 # forward: q, k, v read, o and one float32 lse per row written;
                 # one exp2 per score
                 _bound(fwd, 4.0 * rows * n * d, rows * (4 * d * es + 4), name,
-                       exps=rows * n)
+                       exps=rows * n, split_tf32=not bf16)
                 # backward: five products and one exp2 per score at the
                 # least; q, k, v, o, do and lse read, dq, dk, dv written.  The
                 # two kernels recompute s, p and dp, so they do 14 N^2 D FLOP
                 # where 10 are needed and 2 N^2 exp2 where 1 is.
                 _bound(bwd, 10.0 * rows * n * d, rows * (8 * d * es + 4), name,
-                       exps=rows * n)
+                       exps=rows * n, split_tf32=not bf16)
                 bwd["flop_done_over_flop_needed"] = 1.4
                 bwd["exp_done_over_exp_needed"] = 2.0
                 fwd["host_us_per_call"] = _host_us_per_call(
@@ -668,6 +734,10 @@ def _k3_case(gen, results, b, c, t, k, d, dtype, tol, timed):
 # unfused route: (C, T at batch 2, k), each at d = 1 and 5, bfloat16
 K3_UNGATED = [(384, 13776, 3), (384, 13776, 7), (384, 13776, 11),
               (768, 3444, 11)]
+# K3 in float32 as inference_e2e runs it: one channel per generator pass
+# (batch 1), a 10 s clip's 861 mel frames padded to 896 (the Vocoder's pad
+# multiple of 64) and upsampled 4x into the C = 768 stage
+K3_E2E = (1, 896 * 4)
 
 
 def check_k3(gen, results):
@@ -677,13 +747,20 @@ def check_k3(gen, results):
     activation to bfloat16; the products' sums in another order).  The
     serving and stage-2 shapes are timed in both types (bfloat16 against
     the unfused route too), a 40-sample clip and a ragged T are compared,
-    and the ungated shapes are compared and timed in bfloat16."""
+    the ungated shapes are compared and timed in bfloat16, and the six
+    float32 shapes of ``inference_e2e`` (K3_E2E) are timed beside the
+    unfused route with TF32 off."""
     c = 768
     cases = [(b, t, k, d) for b, t in ((2, 3444), (GAN_BATCH, 256))
              for k in (3, 7) for d in (1, 3, 5)]
     for b, t, k, d in cases:
         _k3_case(gen, results, b, c, t, k, d, torch.float32, 2e-4, True)
         _k3_case(gen, results, b, c, t, k, d, torch.bfloat16, 2e-2, True)
+    # float32 at inference_e2e's shapes, timed beside the unfused route
+    b, t = K3_E2E
+    for k in (3, 7):
+        for d in (1, 3, 5):
+            _k3_case(gen, results, b, c, t, k, d, torch.float32, 2e-4, True)
     # one tile that crosses both clip edges; a ragged T of several tiles
     for b, t, k, d in ((1, 40, 7, 5), (2, 1001, 3, 3)):
         for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
@@ -2997,8 +3074,9 @@ def check_k1_fp32_test_cli(gen) -> list:
     """K1 in float32 at the test CLIs' shapes, (21, 4, 6400 | 1600, 32): one
     group of a 10 s clip's 21 windows through the float32 UNet.  Against
     its plain version in batch chunks of 3 (2e-4 absolute, as check_k1's
-    float32 cases), timed beside its float32 bound and one
-    ``F.scaled_dot_product_attention`` in float32 (TF32 off)."""
+    float32 cases), a second run bit for bit, timed beside the earlier
+    CUDA-core kernel (``cuda_core_ms``), its split-TF32 and CUDA-core bounds
+    and one ``F.scaled_dot_product_attention`` in float32 (TF32 off)."""
     from diffbinaural_tpu_torch.ops import flash_sdpa, sdpa_plain
 
     cases = []
@@ -3018,14 +3096,19 @@ def check_k1_fp32_test_cli(gen) -> list:
         case = {"kernel": "flash_sdpa", "shape": list(shape), "dtype": "fp32",
                 "max_err": err, "tol": K1_FP32_TOL,
                 "output_scale": want.abs().max().item(),
+                "bit_identical_repeat": _same_bits_twice(
+                    "flash_sdpa", (shape, "fp32"), got,
+                    lambda: flash_sdpa(q, k, v, scale)),
                 "ms": time_ms(lambda: flash_sdpa(q, k, v, scale)),
+                "cuda_core_ms": cuda_core_ms(
+                    lambda: flash_sdpa(q, k, v, scale)),
                 "plain_ms": time_ms(plain, warmup=1, iters=3),
                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, scale=scale)),
                 "library": "F.scaled_dot_product_attention, fp32, TF32 off"}
         b, h, _, d = shape
         _bound(case, 4.0 * b * h * n * n * d, 4.0 * b * h * n * d * 4, "fp32",
-               exps=float(b * h * n * n))
+               exps=float(b * h * n * n), split_tf32=True)
         del got, want, q, k, v
         cases.append(case)
     emit({"phase": "k1_fp32_test_cli", "cases": cases})
@@ -3473,7 +3556,72 @@ def phase_eval_cli(world: str, workdir: str) -> dict:
                        for k, c in by_path.items()}
     emit(out)
     torch.cuda.empty_cache()
-    return {"by_path": by_path, **out}
+    return {"by_path": by_path, "ckpt": ck, **out}
+
+
+def phase_tf32_defaults(world: str, workdir: str, ck: str) -> dict:
+    """Fault C4's check on the card.  A user's process starts with
+    PyTorch's TF32 defaults (cuDNN convolutions in TF32, cuBLAS matmuls in
+    float32); this script runs with TF32 off.  One ``test_realbinaural``
+    clip (the float32 UNet and ``ClipPos2D`` from ``ck``) and one
+    ``inference_e2e`` file (the float32 generator, on that clip's TF32-off
+    mels in both runs) are run under each setting inside
+    ``deterministic_algorithms()`` and held bit for bit: the float32 entry
+    points pin float32 themselves (``core/precision.py``).  The largest
+    deviation is reported either way."""
+    from diffbinaural_tpu_torch.cli import inference_e2e, test_realbinaural
+
+    vid = f"vid{WORLD_TRAIN:03d}"
+    split = _split(os.path.join(workdir, "tf32_one.csv"), [vid])
+    runs = {}
+    for label, cudnn_tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
+        root = os.path.join(workdir, f"tf32_{label}")
+        mels = {s: os.path.join(root, s) for s in ("left", "right")}
+        voc_in = runs["tf32_off"]["mels"] if runs else mels
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32  # PyTorch's default: on
+        torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default
+        try:
+            with deterministic_algorithms():
+                t0 = time.perf_counter()
+                _cli_quietly(test_realbinaural.main, [
+                    "--data_root", world, "--list_test", split, "--ckpt", ck,
+                    "--id", "eval", "--arch_frame", "clip_pos2d",
+                    "--output_dir_left", mels["left"],
+                    "--output_dir_right", mels["right"]])
+                clip_s = time.perf_counter() - t0
+                with captured_writes(inference_e2e) as writes:
+                    inference_e2e.main([
+                        "--input_mels_left_dir", voc_in["left"],
+                        "--input_mels_right_dir", voc_in["right"],
+                        "--checkpoint_file",
+                        os.path.join(ck, "voc", "g_00000001"),
+                        "--output_dir", os.path.join(root, "wav")])
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        if len(writes) != 1:
+            fail(f"tf32_defaults: inference_e2e wrote {len(writes)} wavs")
+        runs[label] = {"mels": mels, "wav": writes[0]["wav"], "cli_s": clip_s,
+                       "mel": np.stack([np.load(os.path.join(mels[s],
+                                                             vid + ".npy"))
+                                        for s in ("left", "right")])}
+    off, on = runs["tf32_off"], runs["pytorch_defaults"]
+    out = {"phase": "tf32_defaults", "clip": vid,
+           "pytorch_defaults": "cudnn.allow_tf32 True, "
+                               "cuda.matmul.allow_tf32 False",
+           "test_realbinaural_mel_max_abs_dev":
+               float(np.abs(on["mel"] - off["mel"]).max()),
+           "mel_scale": float(np.abs(off["mel"]).max()),
+           "inference_e2e_wav_max_abs_dev":
+               float(np.abs(on["wav"] - off["wav"]).max()),
+           "wav_scale": float(np.abs(off["wav"]).max()),
+           "test_realbinaural_cli_s": {k: r["cli_s"] for k, r in runs.items()}}
+    emit(out)
+    if (out["test_realbinaural_mel_max_abs_dev"]
+            or out["inference_e2e_wav_max_abs_dev"]):
+        fail("tf32_defaults: the float32 CLIs' output moves with PyTorch's "
+             "TF32 defaults")
+    return out
 
 
 def kernels_line(cases, counts, by_path) -> dict:
@@ -3520,11 +3668,29 @@ def main() -> None:
                          "clip with each sampler and up to 3 steps of each "
                          "trainer (the live-visual one split into tower, "
                          "head and UNet) with torch.profiler")
+    ap.add_argument("--fp32-paths-only", action="store_true",
+                    help="run only the float32 CLI paths on the stage-1 "
+                         "world: train_cli_stage1, eval_cli and "
+                         "tf32_defaults (fault C4's check); a copy of this "
+                         "script beside an older tree of the port times "
+                         "that tree's paths and measures its deviation")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures on the card only")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.fp32_paths_only:
+        info = phase_device()
+        with tempfile.TemporaryDirectory() as workdir:
+            world = os.path.join(workdir, "world1")
+            write_stage1_world(world, seed=61)
+            phase_train_cli_stage1(world, workdir)
+            ev = phase_eval_cli(world, workdir)
+            phase_tf32_defaults(world, workdir, ev["ckpt"])
+        print(info["nvidia_smi"], flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
+                                     "count": info["count"]}})
+        return
 
     t_start = time.time()
     from diffbinaural_tpu_torch import native
@@ -3562,6 +3728,8 @@ def main() -> None:
         k1_fp32 = check_k1_fp32_test_cli(
             torch.Generator(device="cuda").manual_seed(91))
         ev = phase_eval_cli(os.path.join(workdir, "world1"), workdir)
+        phase_tf32_defaults(os.path.join(workdir, "world1"), workdir,
+                            ev["ckpt"])
     emit({"phase": "train_cli_beside_the_paths",
           "stage1_cli_step_s": cli1["seconds_per_step"],
           "stage1_cli_loader_wait_s": cli1["loader_wait_s_per_step"],
@@ -3585,11 +3753,26 @@ def main() -> None:
         "train_cli_stage1": cli1["launches"],
         "train_cli_stage2": cli2["launches"],
         **{f"eval_{k}": v for k, v in ev["by_path"].items()}})
-    # K1 in float32, as the test CLIs run it, beside the bfloat16 row
-    next(r for r in line["kernels"] if r["name"] == "flash_sdpa")[
-        "fp32_test_cli"] = [{k: c[k] for k in (
-            "shape", "max_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")} for c in k1_fp32]
+    # the float32 attention kernels, as the test CLIs and the float32
+    # stage-1 step run them, beside the bfloat16 rows
+    fp32_keys = ("shape", "ms", "cuda_core_ms", "bound_ms",
+                 "cuda_core_bound_ms", "library_ms", "max_err",
+                 "bit_identical_repeat")
+    rows = {r["name"]: r for r in line["kernels"]}
+    rows["fused_snake_conv"]["fp32_inference_e2e"] = [
+        {k: c[k] for k in ("shape", "k", "dilation", "ms", "unfused_ms",
+                           "kernel_ms", "bound_ms", "bound_by", "plain_ms",
+                           "max_err")}
+        for c in cases if c["kernel"] == "fused_snake_conv"
+        and c["dtype"] == "fp32" and c["shape"] == [K3_E2E[0], 768, K3_E2E[1]]]
+    rows["flash_sdpa"]["fp32"] = {k: k1_fp32[0][k] for k in fp32_keys}
+    rows["flash_sdpa"]["fp32_test_cli"] = [{k: c[k] for k in fp32_keys}
+                                           for c in k1_fp32]
+    for name in ("flash_sdpa_with_lse", "flash_sdpa_backward"):
+        case = next(c for c in cases if c["kernel"] == name
+                    and c["dtype"] == "fp32"
+                    and c["shape"] == [TRAIN_BATCH, 4, 6400, 32])
+        rows[name]["fp32"] = {k: case[k] for k in fp32_keys}
     emit(line)
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     print(info["nvidia_smi"], flush=True)

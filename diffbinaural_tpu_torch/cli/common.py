@@ -30,6 +30,7 @@ from ..convert import (tree_to_flax, unet_params_from_flax,
 from ..core import checkpoint as ckpt
 from ..core.config import UnetConfig
 from ..core.device import resolve_device
+from ..core.precision import full_precision
 from ..diffusion import GaussianDiffusion
 from ..infer.stage1 import Stage1Sampler, generate_clip
 from ..models import build_unet
@@ -67,6 +68,7 @@ def visual_apply_fn(net, arch_frame: str):
         raise ValueError(f"{type(net).__name__} is not a {arch_frame!r} "
                          "encoder")
 
+    @full_precision()
     def apply(frames, pos2d, mask, pos3d=None):
         return apply_visual(net, frames, pos2d, mask, pos3d)
 
@@ -297,6 +299,7 @@ class Stage1Trainer:
         self.writer.close()
 
 
+@full_precision()
 def dump_clip_mels(args, sampler: Stage1Sampler, dataset, out_left: str,
                    out_right: str, features_fn=None, generator=None,
                    max_batch: int = 32):

@@ -34,6 +34,7 @@ from ..convert import bigvgan_params_from_flax, discriminator_params_from_flax
 from ..core import checkpoint as ckpt
 from ..core.config import AttrDict, VocoderConfig, build_env
 from ..core.device import resolve_device
+from ..core.precision import full_precision
 from ..losses import MultiScaleMelSpectrogramLoss
 from ..models import build_discriminators, build_vocoder
 from ..signal.stft import mel_spectrogram
@@ -147,7 +148,7 @@ class GanTrainer:
         errs = []
         for i, batch in enumerate(loader):
             mel = torch.from_numpy(batch["mel"][:1]).to(self.device)
-            with torch.inference_mode():
+            with torch.inference_mode(), full_precision():
                 y_hat = self.gen(mel).float()
                 y_hat_mel = self.mel_fn(y_hat[:, 0, :]).cpu().numpy()
             y_hat = y_hat.cpu().numpy()

@@ -20,6 +20,7 @@ import torch
 from . import load_generator, vocoder_hparams
 from ..core.config import VocoderConfig
 from ..core.device import resolve_device
+from ..core.precision import full_precision
 from ..data.audio_io import load_wav, save_wav
 from ..models import BinauralBigVGAN
 from ..signal.stft import mel_spectrogram
@@ -56,7 +57,7 @@ def main(argv=None, *, device=None):
     os.makedirs(a.output_dir, exist_ok=True)
 
     def vocode_pair(mel_l, mel_r, base):
-        with torch.inference_mode():
+        with torch.inference_mode(), full_precision():
             y = model(torch.as_tensor(mel_l[None], device=device),
                       torch.as_tensor(mel_r[None], device=device))
         y = y[0].float().cpu().numpy()

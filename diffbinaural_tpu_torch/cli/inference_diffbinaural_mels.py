@@ -20,6 +20,7 @@ from . import vocoder_hparams
 from .inference_binaural import load_binaural
 from ..core.config import VocoderConfig
 from ..core.device import resolve_device
+from ..core.precision import full_precision
 from ..data.audio_io import save_wav
 
 
@@ -49,7 +50,7 @@ def main(argv=None, *, device=None):
         if not os.path.exists(rp):
             print(f"[WARNING] missing right mel for {base}")
             continue
-        with torch.inference_mode():
+        with torch.inference_mode(), full_precision():
             y = model(torch.as_tensor(np.load(lp)[None], device=device),
                       torch.as_tensor(np.load(rp)[None], device=device))
         y = np.clip(y[0].float().cpu().numpy(), -1.0, 1.0)

@@ -28,6 +28,7 @@ from ..convert import unet_params_from_flax
 from ..core import checkpoint as ckpt
 from ..core.config import UnetConfig
 from ..core.device import resolve_device
+from ..core.precision import full_precision
 from ..data import GenAudioPosDataset
 from ..data.stage1 import load_split_csv
 from ..diffusion import GaussianDiffusion
@@ -46,6 +47,7 @@ def legacy_denormalize(pred: np.ndarray) -> np.ndarray:
     return np.exp(np.abs(pred) / LOG_SCALE) - 1.0
 
 
+@full_precision()
 def generate_legacy(sampler: Stage1Sampler, dataset,
                     generator: torch.Generator = None) -> np.ndarray:
     """(2, M, T) linear mels of a ``GenAudioPosDataset`` clip: each window

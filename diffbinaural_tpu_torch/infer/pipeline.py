@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.precision import full_precision
 from ..diffusion import GaussianDiffusion
 from .stage1 import (
     MEL_MIN,
@@ -176,6 +177,7 @@ class BinauralPipeline:
         return self._stitch(torch.cat(preds, dim=0))
 
     @torch.inference_mode()
+    @full_precision()
     def __call__(self, mono_mel_full, visual_feats,
                  generator: Optional[torch.Generator] = None,
                  noise=None) -> torch.Tensor:

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.precision import full_precision
 from ..diffusion import GaussianDiffusion
 
 MEL_MIN = -12.0
@@ -67,6 +68,7 @@ class Stage1Sampler:
         )
         self.model = model
 
+    @full_precision()
     def sample(self, mono_mel, visual_feat,
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -21,6 +21,7 @@ import torch
 
 from ..core.config import VocoderConfig
 from ..core.device import resolve_device
+from ..core.precision import full_precision
 from ..models import BigVGAN, build_vocoder
 
 
@@ -79,6 +80,7 @@ class Vocoder:
             config, dtype=dtype, seed=seed, device=self.device)
 
     @torch.inference_mode()
+    @full_precision()
     def __call__(self, mel: np.ndarray) -> np.ndarray:
         """mel: (B, num_mels, T) -> (B, T*hop) float32 in [-1, 1]."""
         b, m, t = mel.shape

@@ -36,18 +36,37 @@ KERNELS = {
     "flash_d32": (
         "flash_d32.cu",
         {
-            # q, k, v, o, BH, N, scale, is_bf16, stream
-            "flash_d32_forward": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-            # q, k, v, o, lse, BH, N, scale, is_bf16, stream
-            "flash_d32_forward_lse": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+            # q, k, v, o, BH, N, scale, stream (bfloat16)
+            "flash_d32_forward": [_P, _P, _P, _P, _I, _I, _F, _P],
+            # q, k, v, o, lse, BH, N, scale, stream
+            "flash_d32_forward_lse": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
         },
     ),
     "flash_d32_bwd": (
         "flash_d32_bwd.cu",
-        # q, k, v, o, do, lse, di (scratch), dq, dk, dv, BH, N, scale,
-        # is_bf16, stream
+        # q, k, v, o, do, lse, di (scratch), dq, dk, dv, BH, N, scale, stream
+        # (bfloat16)
         {"flash_d32_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _F, _I, _P]},
+                                _F, _P]},
+    ),
+    "flash_d32_f32": (
+        "flash_d32_f32.cu",
+        {
+            # q, k, v, o, scratch, BH, N, scale, stream (float32)
+            "flash_d32_f32_forward": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+            # q, k, v, o, lse, scratch, BH, N, scale, stream
+            "flash_d32_f32_forward_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _F,
+                                          _P],
+        },
+    ),
+    "flash_d32_f32_bwd": (
+        "flash_d32_f32_bwd.cu",
+        {
+            # q, k, v, o, do, lse, di (scratch), scratch, dq, dk, dv, BH, N,
+            # scale, stream (float32)
+            "flash_d32_f32_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _I, _F, _P],
+        },
     ),
     "alias_free_act": (
         "alias_free_act.cu",
@@ -169,12 +188,18 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         proc, lib = _start(name)
         _finish(name, proc, lib)
-        cdll = ctypes.CDLL(str(lib))
-        for fn, argtypes in KERNELS[name][1].items():
-            getattr(cdll, fn).argtypes = argtypes
-            getattr(cdll, fn).restype = ctypes.c_int
-        _loaded[name] = cdll
+        _loaded[name] = bind(ctypes.CDLL(str(lib)), name)
     return _loaded[name]
+
+
+def bind(cdll: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set the argument and result types of kernel ``name``'s C functions
+    on a loaded library (the shipped one, or a variant built from another
+    source that exports the same functions)."""
+    for fn, argtypes in KERNELS[name][1].items():
+        getattr(cdll, fn).argtypes = argtypes
+        getattr(cdll, fn).restype = ctypes.c_int
+    return cdll
 
 
 def check_launch(name: str, code: int) -> None:

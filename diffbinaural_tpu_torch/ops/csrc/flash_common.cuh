@@ -1,7 +1,6 @@
-// Pieces shared by the head-dimension-32 flash attention kernels: the forward
-// (flash_d32.cu) and the backward (flash_d32_bwd.cu).  The float32 tile
-// geometry and shared-memory tile loader, and the bfloat16 packing that the
-// Hopper kernels (flash_hopper.cuh) use.
+// Pieces shared by the head-dimension-32 flash attention kernels (csrc/ and
+// csrc_variants/): the head dimension, the exp2 constants, and the bfloat16
+// packing that the Hopper kernels (flash_hopper.cuh) use.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -9,39 +8,9 @@
 #include <stdint.h>
 
 constexpr int FD = 32;        // head dimension
-constexpr int FQ = 128;       // float32: rows per block (one per thread)
-constexpr int FK = 64;        // float32: rows per shared-memory tile
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void load8(const float* p, float* dst) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
-}
-__device__ __forceinline__ void store8(float* p, const float* src) {
-  *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
-  *reinterpret_cast<float4*>(p + 4) =
-      make_float4(src[4], src[5], src[6], src[7]);
-}
-// Copy one tile of FK rows x 32 values (rows >= n_rows zero-filled) into
-// shared memory.  The tile is one contiguous run in global memory.
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
-                                          int n_rows, float* dst, int tid) {
-  for (int v = tid; v < FK * FD / 8; v += FQ) {
-    const int row = v / (FD / 8);
-    float vals[8];
-    if (row < n_rows) {
-      load8(src + (size_t)v * 8, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vals[i] = 0.0f;
-    }
-    store8(dst + v * 8, vals);
-  }
-}
 
 // Two floats as one bfloat16 pair (lo in the low half).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -44,106 +44,10 @@
 //    producer 24.  Three consumer warpgroups, 128-key tiles, 4 stages and the
 //    skipped rescale were chosen against the alternatives that
 //    ops/flash_d32_variants.py builds and times (readings in PERF.md).
-//  * float32: flash_d32_kernel, on the CUDA cores.  One block of 128 threads
-//    owns 128 query rows: each thread keeps its query row and its 32-wide
-//    accumulator in registers; every thread reads the same K/V row at a
-//    time, so shared-memory reads are broadcasts; scores are taken 16 keys
-//    at a time, so the accumulator is rescaled once per 16 keys.  TF32
-//    would change the float32 results, so it stays off the tensor cores.
+//  * float32 runs flash_d32_f32.cu (split-TF32 products on wgmma); the
+//    earlier one-thread-per-row CUDA-core kernel is kept as its yardstick in
+//    csrc_variants/flash_d32_cuda_core.cu.
 #include "flash_hopper.cuh"
-
-constexpr int FC = 16;        // keys per online-softmax step
-
-template <bool WRITE_LSE>
-__global__ void __launch_bounds__(FQ)
-flash_d32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int N, int n_qtiles, float qscale) {
-  __shared__ __align__(16) float Ks[FK * FD];
-  __shared__ __align__(16) float Vs[FK * FD];
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x / n_qtiles;
-  const int row = (blockIdx.x % n_qtiles) * FQ + tid;
-  const size_t base = (size_t)bh * N * FD;
-  const int rowc = min(row, N - 1);
-
-  float qr[FD], acc[FD];
-#pragma unroll
-  for (int d = 0; d < FD; d += 8) load8(q + base + (size_t)rowc * FD + d, qr + d);
-#pragma unroll
-  for (int d = 0; d < FD; ++d) {
-    qr[d] *= qscale;
-    acc[d] = 0.0f;
-  }
-  float m = -INFINITY, l = 0.0f;
-
-  for (int k0 = 0; k0 < N; k0 += FK) {
-    const int kv = min(FK, N - k0);
-    __syncthreads();  // the previous tile is no longer being read
-    load_tile(k + base + (size_t)k0 * FD, kv, Ks, tid);
-    load_tile(v + base + (size_t)k0 * FD, kv, Vs, tid);
-    __syncthreads();
-
-    for (int j0 = 0; j0 < kv; j0 += FC) {
-      float s[FC];
-#pragma unroll
-      for (int jj = 0; jj < FC; ++jj) {
-        const float4* kr = reinterpret_cast<const float4*>(Ks + (j0 + jj) * FD);
-        float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-        for (int d4 = 0; d4 < FD / 4; d4 += 2) {
-          const float4 ka = kr[d4];
-          const float4 kb = kr[d4 + 1];
-          a0 = fmaf(qr[4 * d4 + 0], ka.x, a0);
-          a0 = fmaf(qr[4 * d4 + 1], ka.y, a0);
-          a0 = fmaf(qr[4 * d4 + 2], ka.z, a0);
-          a0 = fmaf(qr[4 * d4 + 3], ka.w, a0);
-          a1 = fmaf(qr[4 * d4 + 4], kb.x, a1);
-          a1 = fmaf(qr[4 * d4 + 5], kb.y, a1);
-          a1 = fmaf(qr[4 * d4 + 6], kb.z, a1);
-          a1 = fmaf(qr[4 * d4 + 7], kb.w, a1);
-        }
-        s[jj] = (j0 + jj < kv) ? (a0 + a1) : -INFINITY;
-      }
-      float mc = s[0];
-#pragma unroll
-      for (int jj = 1; jj < FC; ++jj) mc = fmaxf(mc, s[jj]);
-      // key j0 is always valid, so m_new is finite and exp2f(-inf) == 0
-      const float m_new = fmaxf(m, mc);
-      const float corr = exp2f(m - m_new);
-      m = m_new;
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < FD; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < FC; ++jj) {
-        const float p = exp2f(s[jj] - m_new);
-        l += p;
-        const float4* vr = reinterpret_cast<const float4*>(Vs + (j0 + jj) * FD);
-#pragma unroll
-        for (int d4 = 0; d4 < FD / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-        }
-      }
-    }
-  }
-
-  if (row < N) {
-    const float inv_l = 1.0f / l;
-#pragma unroll
-    for (int d = 0; d < FD; ++d) acc[d] *= inv_l;
-#pragma unroll
-    for (int d = 0; d < FD; d += 8) store8(o + base + (size_t)row * FD + d, acc + d);
-    // m and l are in base 2 (scale * log2(e) is folded into q)
-    if (WRITE_LSE) lse[(size_t)bh * N + row] = (m + log2f(l)) * LN2;
-  }
-}
-
 
 // ---------------------------------------------------- tensor cores (Hopper)
 
@@ -371,45 +275,34 @@ static int forward_maps(CUtensorMap* maps, const void* q, const void* k,
 
 template <bool WRITE_LSE>
 static int launch_forward(const void* q, const void* k, const void* v, void* o,
-                          float* lse, int BH, int N, float scale, int is_bf16,
-                          void* stream) {
+                          float* lse, int BH, int N, float scale, void* stream) {
   if (BH <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const int rows = is_bf16 ? FWD_BLOCK_M : FQ;
-  const int n_qtiles = (N + rows - 1) / rows;
+  const int n_qtiles = (N + FWD_BLOCK_M - 1) / FWD_BLOCK_M;
   const long long blocks = (long long)BH * n_qtiles;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const float qscale = scale * LOG2E;  // fold log2(e): exp2 in the kernels
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    CUtensorMap maps[3];
-    int e = forward_maps(maps, q, k, v, BH, N);
-    if (e == 0) e = allow_smem<flash_d32_ws_kernel<WRITE_LSE>>(FwdSmem::bytes);
-    if (e != 0) return e;
-    flash_d32_ws_kernel<WRITE_LSE>
-        <<<(unsigned)blocks, FWD_THREADS, FwdSmem::bytes + TILE_ALIGN, s>>>(
-            maps[0], maps[1], maps[2], (__nv_bfloat16*)o, lse, N, n_qtiles,
-            qscale);
-  } else {
-    flash_d32_kernel<WRITE_LSE><<<(unsigned)blocks, FQ, 0, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, N,
-        n_qtiles, qscale);
-  }
+  CUtensorMap maps[3];
+  int e = forward_maps(maps, q, k, v, BH, N);
+  if (e == 0) e = allow_smem<flash_d32_ws_kernel<WRITE_LSE>>(FwdSmem::bytes);
+  if (e != 0) return e;
+  flash_d32_ws_kernel<WRITE_LSE>
+      <<<(unsigned)blocks, FWD_THREADS, FwdSmem::bytes + TILE_ALIGN,
+         (cudaStream_t)stream>>>(maps[0], maps[1], maps[2], (__nv_bfloat16*)o,
+                                 lse, N, n_qtiles,
+                                 scale * LOG2E);  // fold log2(e): exp2 in the kernel
   return (int)cudaGetLastError();
 }
 
+// q, k, v, o: (BH, N, 32) bfloat16.
 extern "C" int flash_d32_forward(const void* q, const void* k, const void* v,
                                  void* o, int BH, int N, float scale,
-                                 int is_bf16, void* stream) {
-  return launch_forward<false>(q, k, v, o, nullptr, BH, N, scale, is_bf16,
-                               stream);
+                                 void* stream) {
+  return launch_forward<false>(q, k, v, o, nullptr, BH, N, scale, stream);
 }
 
 // The training forward: the same output plus lse (BH, N), float32.
 extern "C" int flash_d32_forward_lse(const void* q, const void* k,
                                      const void* v, void* o, void* lse, int BH,
-                                     int N, float scale, int is_bf16,
-                                     void* stream) {
+                                     int N, float scale, void* stream) {
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_forward<true>(q, k, v, o, (float*)lse, BH, N, scale, is_bf16,
-                              stream);
+  return launch_forward<true>(q, k, v, o, (float*)lse, BH, N, scale, stream);
 }

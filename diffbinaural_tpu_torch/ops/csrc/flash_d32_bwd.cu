@@ -44,33 +44,26 @@
 //    warp's lanes, each of which arrives on the stage's barrier.  The dq
 //    kernel is the forward's loop with dp = do v^T beside s = q k^T (B = the
 //    K and V tiles, K-major) and dq += ds k (B = the K tile, transpose bit).
-//  * float32: CUDA cores, one thread per key (dk/dv) or per query row (dq)
-//    with its rows and accumulators in registers; every thread reads the
-//    same shared row at a time, so shared reads are broadcasts.
+//  * float32 runs flash_d32_f32_bwd.cu (split-TF32 products on wgmma); the
+//    earlier CUDA-core kernels (one thread per key or query row) are kept as
+//    its yardstick in csrc_variants/flash_d32_cuda_core.cu.
 #include "flash_hopper.cuh"
 
 // ------------------------------------------------------------------- di
 
-__device__ __forceinline__ float dot32(const float* a, const float* b) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int d = 0; d < FD; d += 8) {
-    float x[8], y[8];
-    load8(a + d, x);
-    load8(b + d, y);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc = fmaf(x[i], y[i], acc);
-  }
-  return acc;
-}
-
-__device__ __forceinline__ float dot32(const __nv_bfloat16* a,
-                                       const __nv_bfloat16* b) {
+// di[row] = sum_d o[row][d] * do[row][d], float32, one thread per row.
+__global__ void __launch_bounds__(256)
+flash_d32_di_kernel(const __nv_bfloat16* __restrict__ o,
+                    const __nv_bfloat16* __restrict__ dout,
+                    float* __restrict__ di, int rows) {
+  const int r = blockIdx.x * 256 + threadIdx.x;
+  if (r >= rows) return;
+  const uint4* a = reinterpret_cast<const uint4*>(o + (size_t)r * FD);
+  const uint4* b = reinterpret_cast<const uint4*>(dout + (size_t)r * FD);
   float acc = 0.0f;
 #pragma unroll
   for (int c = 0; c < FD / 8; ++c) {
-    const uint4 ra = reinterpret_cast<const uint4*>(a)[c];
-    const uint4 rb = reinterpret_cast<const uint4*>(b)[c];
+    const uint4 ra = a[c], rb = b[c];
     const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&ra);
     const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&rb);
 #pragma unroll
@@ -81,208 +74,8 @@ __device__ __forceinline__ float dot32(const __nv_bfloat16* a,
       acc = fmaf(fa.y, fb.y, acc);
     }
   }
-  return acc;
+  di[r] = acc;
 }
-
-// di[row] = sum_d o[row][d] * do[row][d], float32, one thread per row.
-template <typename T>
-__global__ void __launch_bounds__(256)
-flash_d32_di_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                    float* __restrict__ di, int rows) {
-  const int r = blockIdx.x * 256 + threadIdx.x;
-  if (r < rows) di[r] = dot32(o + (size_t)r * FD, dout + (size_t)r * FD);
-}
-
-// ------------------------------------------------------ float32, CUDA cores
-
-// One block owns FQ keys (one per thread) and loops over query tiles of FK.
-__global__ void __launch_bounds__(FQ)
-flash_d32_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ di, float* __restrict__ dk,
-                         float* __restrict__ dv, int N, int n_ktiles,
-                         float scale) {
-  __shared__ __align__(16) float Qs[FK * FD];
-  __shared__ __align__(16) float Ds[FK * FD];
-  __shared__ float Ls[FK];   // lse in base 2
-  __shared__ float Is[FK];   // di
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x / n_ktiles;
-  const int key = (blockIdx.x % n_ktiles) * FQ + tid;
-  const size_t base = (size_t)bh * N * FD;
-  const size_t rbase = (size_t)bh * N;
-  const int keyc = min(key, N - 1);
-  const float qscale = scale * LOG2E;
-
-  float kr[FD], vr[FD], dkr[FD], dvr[FD];
-#pragma unroll
-  for (int d = 0; d < FD; d += 8) {
-    load8(k + base + (size_t)keyc * FD + d, kr + d);
-    load8(v + base + (size_t)keyc * FD + d, vr + d);
-  }
-#pragma unroll
-  for (int d = 0; d < FD; ++d) {
-    dkr[d] = 0.0f;
-    dvr[d] = 0.0f;
-  }
-
-  for (int q0 = 0; q0 < N; q0 += FK) {
-    const int nq = min(FK, N - q0);
-    __syncthreads();  // the previous tile is no longer being read
-    load_tile(q + base + (size_t)q0 * FD, nq, Qs, tid);
-    load_tile(dout + base + (size_t)q0 * FD, nq, Ds, tid);
-    if (tid < FK) {
-      const bool valid = tid < nq;
-      Ls[tid] = valid ? lse[rbase + q0 + tid] * LOG2E : 0.0f;
-      Is[tid] = valid ? di[rbase + q0 + tid] : 0.0f;
-    }
-    __syncthreads();
-
-    // only the nq valid query rows are visited: a row beyond N adds nothing
-    for (int i = 0; i < nq; ++i) {
-      const float4* qr = reinterpret_cast<const float4*>(Qs + i * FD);
-      const float4* dr = reinterpret_cast<const float4*>(Ds + i * FD);
-      float s0 = 0.0f, s1 = 0.0f, p0 = 0.0f, p1 = 0.0f;
-#pragma unroll
-      for (int d4 = 0; d4 < FD / 4; d4 += 2) {
-        const float4 qa = qr[d4], qb = qr[d4 + 1];
-        const float4 da = dr[d4], db = dr[d4 + 1];
-        s0 = fmaf(qa.x, kr[4 * d4 + 0], s0);
-        s0 = fmaf(qa.y, kr[4 * d4 + 1], s0);
-        s0 = fmaf(qa.z, kr[4 * d4 + 2], s0);
-        s0 = fmaf(qa.w, kr[4 * d4 + 3], s0);
-        s1 = fmaf(qb.x, kr[4 * d4 + 4], s1);
-        s1 = fmaf(qb.y, kr[4 * d4 + 5], s1);
-        s1 = fmaf(qb.z, kr[4 * d4 + 6], s1);
-        s1 = fmaf(qb.w, kr[4 * d4 + 7], s1);
-        p0 = fmaf(da.x, vr[4 * d4 + 0], p0);
-        p0 = fmaf(da.y, vr[4 * d4 + 1], p0);
-        p0 = fmaf(da.z, vr[4 * d4 + 2], p0);
-        p0 = fmaf(da.w, vr[4 * d4 + 3], p0);
-        p1 = fmaf(db.x, vr[4 * d4 + 4], p1);
-        p1 = fmaf(db.y, vr[4 * d4 + 5], p1);
-        p1 = fmaf(db.z, vr[4 * d4 + 6], p1);
-        p1 = fmaf(db.w, vr[4 * d4 + 7], p1);
-      }
-      const float p = exp2f((s0 + s1) * qscale - Ls[i]);
-      const float ds = p * ((p0 + p1) - Is[i]);
-#pragma unroll
-      for (int d4 = 0; d4 < FD / 4; ++d4) {
-        const float4 qa = qr[d4];
-        const float4 da = dr[d4];
-        dvr[4 * d4 + 0] = fmaf(p, da.x, dvr[4 * d4 + 0]);
-        dvr[4 * d4 + 1] = fmaf(p, da.y, dvr[4 * d4 + 1]);
-        dvr[4 * d4 + 2] = fmaf(p, da.z, dvr[4 * d4 + 2]);
-        dvr[4 * d4 + 3] = fmaf(p, da.w, dvr[4 * d4 + 3]);
-        dkr[4 * d4 + 0] = fmaf(ds, qa.x, dkr[4 * d4 + 0]);
-        dkr[4 * d4 + 1] = fmaf(ds, qa.y, dkr[4 * d4 + 1]);
-        dkr[4 * d4 + 2] = fmaf(ds, qa.z, dkr[4 * d4 + 2]);
-        dkr[4 * d4 + 3] = fmaf(ds, qa.w, dkr[4 * d4 + 3]);
-      }
-    }
-  }
-
-  if (key < N) {
-#pragma unroll
-    for (int d = 0; d < FD; ++d) dkr[d] *= scale;
-#pragma unroll
-    for (int d = 0; d < FD; d += 8) {
-      store8(dk + base + (size_t)key * FD + d, dkr + d);
-      store8(dv + base + (size_t)key * FD + d, dvr + d);
-    }
-  }
-}
-
-// One block owns FQ query rows (one per thread) and loops over key tiles.
-__global__ void __launch_bounds__(FQ)
-flash_d32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ di, float* __restrict__ dq,
-                        int N, int n_qtiles, float scale) {
-  __shared__ __align__(16) float Ks[FK * FD];
-  __shared__ __align__(16) float Vs[FK * FD];
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x / n_qtiles;
-  const int row = (blockIdx.x % n_qtiles) * FQ + tid;
-  const size_t base = (size_t)bh * N * FD;
-  const size_t rbase = (size_t)bh * N;
-  const int rowc = min(row, N - 1);
-  const float qscale = scale * LOG2E;
-
-  float qr[FD], dor[FD], acc[FD];
-#pragma unroll
-  for (int d = 0; d < FD; d += 8) {
-    load8(q + base + (size_t)rowc * FD + d, qr + d);
-    load8(dout + base + (size_t)rowc * FD + d, dor + d);
-  }
-#pragma unroll
-  for (int d = 0; d < FD; ++d) {
-    qr[d] *= qscale;
-    acc[d] = 0.0f;
-  }
-  const float l2 = lse[rbase + rowc] * LOG2E;
-  const float dii = di[rbase + rowc];
-
-  for (int k0 = 0; k0 < N; k0 += FK) {
-    const int kv = min(FK, N - k0);
-    __syncthreads();  // the previous tile is no longer being read
-    load_tile(k + base + (size_t)k0 * FD, kv, Ks, tid);
-    load_tile(v + base + (size_t)k0 * FD, kv, Vs, tid);
-    __syncthreads();
-
-    // only the kv valid keys are visited: a key beyond N adds nothing
-    for (int j = 0; j < kv; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(Ks + j * FD);
-      const float4* vr = reinterpret_cast<const float4*>(Vs + j * FD);
-      float s0 = 0.0f, s1 = 0.0f, p0 = 0.0f, p1 = 0.0f;
-#pragma unroll
-      for (int d4 = 0; d4 < FD / 4; d4 += 2) {
-        const float4 ka = kr[d4], kb = kr[d4 + 1];
-        const float4 va = vr[d4], vb = vr[d4 + 1];
-        s0 = fmaf(qr[4 * d4 + 0], ka.x, s0);
-        s0 = fmaf(qr[4 * d4 + 1], ka.y, s0);
-        s0 = fmaf(qr[4 * d4 + 2], ka.z, s0);
-        s0 = fmaf(qr[4 * d4 + 3], ka.w, s0);
-        s1 = fmaf(qr[4 * d4 + 4], kb.x, s1);
-        s1 = fmaf(qr[4 * d4 + 5], kb.y, s1);
-        s1 = fmaf(qr[4 * d4 + 6], kb.z, s1);
-        s1 = fmaf(qr[4 * d4 + 7], kb.w, s1);
-        p0 = fmaf(dor[4 * d4 + 0], va.x, p0);
-        p0 = fmaf(dor[4 * d4 + 1], va.y, p0);
-        p0 = fmaf(dor[4 * d4 + 2], va.z, p0);
-        p0 = fmaf(dor[4 * d4 + 3], va.w, p0);
-        p1 = fmaf(dor[4 * d4 + 4], vb.x, p1);
-        p1 = fmaf(dor[4 * d4 + 5], vb.y, p1);
-        p1 = fmaf(dor[4 * d4 + 6], vb.z, p1);
-        p1 = fmaf(dor[4 * d4 + 7], vb.w, p1);
-      }
-      const float p = exp2f((s0 + s1) - l2);
-      const float ds = p * ((p0 + p1) - dii);
-#pragma unroll
-      for (int d4 = 0; d4 < FD / 4; ++d4) {
-        const float4 ka = kr[d4];
-        acc[4 * d4 + 0] = fmaf(ds, ka.x, acc[4 * d4 + 0]);
-        acc[4 * d4 + 1] = fmaf(ds, ka.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(ds, ka.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(ds, ka.w, acc[4 * d4 + 3]);
-      }
-    }
-  }
-
-  if (row < N) {
-#pragma unroll
-    for (int d = 0; d < FD; ++d) acc[d] *= scale;
-#pragma unroll
-    for (int d = 0; d < FD; d += 8) store8(dq + base + (size_t)row * FD + d, acc + d);
-  }
-}
-
 
 // ---------------------------------------------------- tensor cores (Hopper)
 
@@ -618,42 +411,25 @@ static int launch_backward_bf16(const void* q, const void* k, const void* v,
   return 0;
 }
 
-// q, k, v, o, dout: (BH, N, 32) of one type; lse: (BH, N) float32 from the
+// q, k, v, o, dout: (BH, N, 32) bfloat16; lse: (BH, N) float32 from the
 // training forward; di: (BH, N) float32 scratch, written here; dq, dk, dv:
-// (BH, N, 32) in the inputs' type.
+// (BH, N, 32) bfloat16.
 extern "C" int flash_d32_backward(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
                                   const void* lse, void* di, void* dq, void* dk,
                                   void* dv, int BH, int N, float scale,
-                                  int is_bf16, void* stream) {
+                                  void* stream) {
   if (BH <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)BH * N;
-  const int n_tiles = (N + FQ - 1) / FQ;  // float32: a row or key per thread
-  const long long blocks = (long long)BH * n_tiles;
-  if (rows > 2147483647LL || blocks > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  const unsigned di_blocks = (unsigned)((rows + 255) / 256);
+  if (rows > 2147483647LL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const float* lse_f = (const float*)lse;
-  float* di_f = (float*)di;
-  if (is_bf16) {
-    flash_d32_di_kernel<__nv_bfloat16><<<di_blocks, 256, 0, s>>>(
-        (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, di_f, (int)rows);
-    const int e = launch_backward_bf16(q, k, v, dout, lse_f, di_f, dq, dk, dv,
-                                       BH, N, scale, s);
-    if (e != 0) return e;
-  } else {
-    const float* qf = (const float*)q;
-    const float* kf = (const float*)k;
-    const float* vf = (const float*)v;
-    const float* df = (const float*)dout;
-    flash_d32_di_kernel<float><<<di_blocks, 256, 0, s>>>(
-        (const float*)o, df, di_f, (int)rows);
-    flash_d32_bwd_dkv_kernel<<<(unsigned)blocks, FQ, 0, s>>>(
-        qf, kf, vf, df, lse_f, di_f, (float*)dk, (float*)dv, N, n_tiles, scale);
-    flash_d32_bwd_dq_kernel<<<(unsigned)blocks, FQ, 0, s>>>(
-        qf, kf, vf, df, lse_f, di_f, (float*)dq, N, n_tiles, scale);
-  }
+  flash_d32_di_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
+      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, (float*)di,
+      (int)rows);
+  const int e = launch_backward_bf16(q, k, v, dout, (const float*)lse,
+                                     (const float*)di, dq, dk, dv, BH, N,
+                                     scale, s);
+  if (e != 0) return e;
   // a refused launch is sticky until read: one read covers all three
   return (int)cudaGetLastError();
 }

@@ -7,15 +7,16 @@ kernels written for this card:
 
   * ``flash_sdpa`` without a gradient — ``_attn_core`` primal ->
     ``_fwd(save_residuals=False, exp2=True)`` — ``csrc/flash_d32.cu``,
-    ``flash_d32_forward``;
+    ``flash_d32_forward`` (float32: ``csrc/flash_d32_f32.cu``);
   * the training forward — ``_attn_core_fwd`` -> ``_fwd(save_residuals=True)``
     — the same kernels with one more output (``flash_d32_forward_lse``):
     ONE float32 per query row, ``lse = m + log(l)`` in base e of the scaled
     scores, in place of the TPU's lane-broadcast ``(l, m)`` pair;
   * the backward — ``_attn_core_bwd`` and the two stock TPU kernels it calls
-    — ``csrc/flash_d32_bwd.cu``: a row-sum kernel for ``di``, a dk/dv kernel
-    (a block per key tile, looping over query tiles) and a dq kernel (a block
-    per query tile, looping over key tiles).  No atomics, so the same sums
+    — ``csrc/flash_d32_bwd.cu`` (float32: ``csrc/flash_d32_f32_bwd.cu``): a
+    row-sum kernel for ``di``, a dk/dv kernel (a block per key tile, looping
+    over query tiles) and a dq kernel (a block per query tile, looping over
+    key tiles).  No atomics, so the same sums
     in every run.
 
 ``flash_sdpa`` ties them together behind a ``torch.autograd.Function``: on a
@@ -35,8 +36,13 @@ is ``exp2`` with ``log2(e)`` folded into the scale.  bfloat16 inputs — what th
 training paths run — go through warp-specialised Hopper kernels: a producer
 warp keeps a ring of tiles in flight with TMA, three consumer warpgroups
 multiply with ``wgmma`` (the probabilities and ``ds`` rounded to bfloat16 for
-the second products); float32 inputs run on the CUDA cores, one thread per
-row.
+the second products).  float32 inputs — what the test and stage-1 train CLIs
+run, as the JAX CLIs build their UNet in float32 — go through kernels of the
+same shape in ``csrc/flash_d32_f32.cu`` and ``csrc/flash_d32_f32_bwd.cu``:
+every product is three TF32 products on ``wgmma`` (x = hi + lo, a.b ~
+a_lo.b_hi + a_hi.b_lo + a_hi.b_hi: float32 accuracy, where one TF32 product
+would not pass the float32 checks), on operands split by a pre-pass into a
+scratch that the wrapper allocates (``_scratch``).
 
 Beside each kernel stands its plain PyTorch version (``sdpa_plain``,
 ``sdpa_plain_with_lse``, ``sdpa_backward_plain``), with dense N x N tensors.
@@ -137,17 +143,52 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def _forward_no_lse(q, k, v, sm_scale: float):
-    """The residual-free forward on checked CUDA tensors."""
+# keys per block of the float32 kernels' transposed operands, rounded up to
+# (csrc/flash_f32_hopper.cuh: F32_PAD)
+F32_PAD = 64
+
+
+def _scratch(q, backward: bool):
+    """The float32 kernels' scratch on q's device: the hi and lo halves of
+    the inputs as rows (q, k; the backward also v, do) and transposed, with
+    N padded to F32_PAD (v; the backward q, do, k)."""
+    b, h, n, d = q.shape
+    n_pad = -(-n // F32_PAD) * F32_PAD
+    rows, transposed = (4, 3) if backward else (2, 1)
+    floats = 2 * b * h * d * (rows * n + transposed * n_pad)
+    return torch.empty(floats, dtype=torch.float32, device=q.device)
+
+
+def _forward(q, k, v, sm_scale: float, with_lse: bool):
+    """One launch of the forward on checked CUDA tensors: ``(o, lse)``, lse
+    None without ``with_lse``.  bfloat16 runs ``flash_d32.cu``, float32
+    ``flash_d32_f32.cu`` (split-TF32 products) with a scratch for the split
+    inputs."""
     b, h, n, _ = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if with_lse:
+        args.append(lse.data_ptr())
     with torch.cuda.device(q.device):
-        lib = _build.load("flash_d32")
-        code = lib.flash_d32_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * h, n, float(sm_scale), int(q.dtype == torch.bfloat16),
-            _stream(),
-        )
+        if q.dtype == torch.bfloat16:
+            lib = _build.load("flash_d32")
+            fn = (lib.flash_d32_forward_lse if with_lse
+                  else lib.flash_d32_forward)
+        else:
+            lib = _build.load("flash_d32_f32")
+            scratch = _scratch(q, backward=False)
+            args.append(scratch.data_ptr())
+            fn = (lib.flash_d32_f32_forward_lse if with_lse
+                  else lib.flash_d32_f32_forward)
+        code = fn(*args, b * h, n, float(sm_scale), _stream())
+    return out, lse, code
+
+
+def _forward_no_lse(q, k, v, sm_scale: float):
+    """The residual-free forward on checked CUDA tensors."""
+    out, _, code = _forward(q, k, v, sm_scale, with_lse=False)
     _build.check_launch("flash_sdpa", code)
     flash_sdpa.launches += 1
     return out
@@ -163,16 +204,7 @@ def flash_sdpa_with_lse(q, k, v, sm_scale: float):
     if _check("flash_sdpa_with_lse", q, [("k", k), ("v", v)]):
         o, lse = sdpa_plain_with_lse(q, k, v, sm_scale)
         return o, lse.float()
-    b, h, n, _ = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        lib = _build.load("flash_d32")
-        code = lib.flash_d32_forward_lse(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b * h, n, float(sm_scale),
-            int(q.dtype == torch.bfloat16), _stream(),
-        )
+    out, lse, code = _forward(q, k, v, sm_scale, with_lse=True)
     _build.check_launch("flash_sdpa_with_lse", code)
     flash_sdpa_with_lse.launches += 1
     return out, lse
@@ -193,14 +225,19 @@ def flash_sdpa_backward(q, k, v, o, lse, do, sm_scale: float):
     b, h, n, _ = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     di = torch.empty_like(lse)  # scratch of the kernels: rowsum(o * do)
+    ptrs = [a.data_ptr() for a in (q, k, v, o, do, lse, di)]
+    grads = [a.data_ptr() for a in (dq, dk, dv)]
     with torch.cuda.device(q.device):
-        lib = _build.load("flash_d32_bwd")
-        code = lib.flash_d32_backward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b * h, n, float(sm_scale),
-            int(q.dtype == torch.bfloat16), _stream(),
-        )
+        if q.dtype == torch.bfloat16:
+            lib = _build.load("flash_d32_bwd")
+            code = lib.flash_d32_backward(*ptrs, *grads, b * h, n,
+                                          float(sm_scale), _stream())
+        else:
+            lib = _build.load("flash_d32_f32_bwd")
+            scratch = _scratch(q, backward=True)
+            code = lib.flash_d32_f32_backward(
+                *ptrs, scratch.data_ptr(), *grads, b * h, n, float(sm_scale),
+                _stream())
     _build.check_launch("flash_sdpa_backward", code)
     flash_sdpa_backward.launches += 1
     return dq, dk, dv

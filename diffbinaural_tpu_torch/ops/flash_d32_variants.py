@@ -1,20 +1,28 @@
-"""Variants of the bfloat16 attention kernels, built side by side and timed
-in turns on one card: the measurement behind the shipped kernels' tile
-sizes, warpgroup counts, ring depth, turn-taking and rescale.
+"""Variants of the attention kernels, built side by side and timed in turns
+on one card: the measurement behind the shipped kernels' tile sizes,
+warpgroup counts, ring depth, turn-taking and rescale.
 
-Each variant is the shipped source with a few lines replaced: two consumer
-warpgroups instead of three, 64-key tiles instead of 128, two ring stages
-instead of four, no turns between the consumer warpgroups, or the output
-rescaled at every tile instead of only where a row max of the warp moved.  Every line a variant
-replaces must still be in the sources, so a variant that no longer applies
-fails before anything is built (``tests/test_torch_flash_d32_tiling.py``
-checks that on the CPU).  On a machine with a card and ``nvcc``:
+Each variant is the shipped source with a few lines replaced.  bfloat16: two
+consumer warpgroups instead of three, 64-key tiles instead of 128, two ring
+stages instead of four, no turns between the consumer warpgroups, or the
+output rescaled at every tile instead of only where a row max of the warp
+moved.  float32 (split-TF32 on ``wgmma``): two consumer warpgroups of the
+forward instead of three, two ring stages instead of four, no turns.  Every
+line a variant replaces must still be in the sources, so a variant that no
+longer applies fails before anything is built
+(``tests/test_torch_flash_d32_tiling.py`` checks that on the CPU).  Beside
+them, ``cuda_core`` is the float32 kernels' earlier design
+(``csrc_variants/flash_d32_cuda_core.cu``: one thread per row on the CUDA
+cores), the float32 kernels' yardstick: it exports the float32 libraries'
+functions, and :func:`cuda_core_in_place` puts it in their place, so that
+the wrappers time it (``chip_smoke.py``'s ``cuda_core_ms``).  On a machine
+with a card and ``nvcc``:
 
     python3 -m diffbinaural_tpu_torch.ops.flash_d32_variants [--rounds 12]
 
-builds the shipped sources and every variant (one ``nvcc`` each, all
-started together, under ``diffbinaural_tpu_torch/build/variants/``), then
-prints one JSON line per kernel and shape: each build's ms per launch as
+builds the shipped sources, every variant and ``cuda_core`` (one ``nvcc``
+each, all started together, under ``diffbinaural_tpu_torch/build/variants/``),
+then prints one JSON line per kernel and shape: each build's ms per launch as
 quartiles over the rounds (CUDA events around 5 back-to-back launches; the
 builds take turns, in reversed order every other round), the largest
 difference of its outputs from the shipped build's (0.0: the same bits),
@@ -24,18 +32,24 @@ and ptxas's lines on spills or serialised ``wgmma``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import re
 import shutil
 import statistics
 import subprocess
+from pathlib import Path
 
 import torch
 
 from . import _build
 
 HEADER, FWD_SRC = "flash_hopper.cuh", "flash_d32.cu"
+F32_HEADER, F32_FWD_SRC = "flash_f32_hopper.cuh", "flash_d32_f32.cu"
+CUDA_CORE_SOURCE = (Path(__file__).resolve().parent / "csrc_variants"
+                    / "flash_d32_cuda_core.cu")
+F32_LIBS = ("flash_d32_f32", "flash_d32_f32_bwd")
 
 # variant -> (library it rebuilds, [(file, line(s) replaced, replacement)])
 VARIANTS = {
@@ -71,10 +85,26 @@ VARIANTS = {
         (HEADER, "constexpr int BWD_CONSUMER_REGS = 160;",
          "constexpr int BWD_CONSUMER_REGS = 232;"),
     ]),
+    "f32_fwd_two_warpgroups": ("flash_d32_f32", [
+        (F32_HEADER, "constexpr int F32_FWD_CONSUMERS = 3;",
+         "constexpr int F32_FWD_CONSUMERS = 2;"),
+        (F32_HEADER, "constexpr int F32_FWD_CONSUMER_REGS = 160;",
+         "constexpr int F32_FWD_CONSUMER_REGS = 232;"),
+    ]),
+    "f32_fwd_two_stages": ("flash_d32_f32", [
+        (F32_HEADER, "constexpr int F32_FWD_STAGES = 4;",
+         "constexpr int F32_FWD_STAGES = 2;"),
+    ]),
+    "f32_fwd_no_turns": ("flash_d32_f32", [
+        (F32_FWD_SRC, "named_sync(", "(void)("),
+        (F32_FWD_SRC, "named_arrive(", "(void)("),
+    ]),
 }
 
 FORWARD_SHAPES = [(8, 4, 6400), (8, 4, 1600), (16, 4, 6400)]
 BACKWARD_SHAPES = [(16, 4, 6400), (16, 4, 1600)]
+# float32: the test CLIs' K1 (21 windows), the stage-1 step's K1r and K1b
+F32_FORWARD_SHAPES = [(21, 4, 6400), (21, 4, 1600), (16, 4, 6400)]
 
 
 def patched_sources(name: str) -> dict[str, str]:
@@ -89,23 +119,35 @@ def patched_sources(name: str) -> dict[str, str]:
     return texts
 
 
+def _nvcc_cmd(src, out, include):
+    return [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+            str(include), "-o", str(out), str(src)]
+
+
 def _start_builds(names):
-    """One nvcc per build, all started together: {name: (Popen, lib path)}."""
+    """One nvcc per build, all started together: {(name, lib): (Popen, lib
+    path)}; ``cuda_core`` builds its own source against the shipped
+    headers."""
     root = _build.BUILD_DIR / "variants"
     shutil.rmtree(root, ignore_errors=True)
     started = {}
     for name in names:
         src_dir = root / name
         src_dir.mkdir(parents=True)
+        if name == "cuda_core":
+            out = src_dir / "libcuda_core.so"
+            started[(name, "cuda_core")] = (subprocess.Popen(
+                _nvcc_cmd(CUDA_CORE_SOURCE, out, _build.CSRC),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                out)
+            continue
         for file, text in patched_sources(name).items():
             (src_dir / file).write_text(text)
         libs = ([VARIANTS[name][0]] if name in VARIANTS
-                else ["flash_d32", "flash_d32_bwd"])
+                else ["flash_d32", "flash_d32_bwd", *F32_LIBS])
         for lib in libs:
             out = src_dir / f"lib{lib}.so"
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-                   "-I", str(src_dir), "-o", str(out),
-                   str(src_dir / _build.KERNELS[lib][0])]
+            cmd = _nvcc_cmd(src_dir / _build.KERNELS[lib][0], out, src_dir)
             started[(name, lib)] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), out)
@@ -114,10 +156,44 @@ def _start_builds(names):
 
 def _load(lib: str, path) -> ctypes.CDLL:
     cdll = ctypes.CDLL(str(path))
-    for fn, argtypes in _build.KERNELS[lib][1].items():
-        getattr(cdll, fn).argtypes = argtypes
-        getattr(cdll, fn).restype = ctypes.c_int
-    return cdll
+    if lib == "cuda_core":  # it stands in for both float32 libraries
+        for name in F32_LIBS:
+            _build.bind(cdll, name)
+        return cdll
+    return _build.bind(cdll, lib)
+
+
+def start_cuda_core():
+    """Start building the float32 yardstick alone; for :func:`finish`."""
+    return _start_builds(["cuda_core"])
+
+
+def finish(started) -> dict:
+    """Wait for :func:`_start_builds`' compiles: ({(name, lib): CDLL},
+    {name: ptxas lines on spills or serialised wgmma})."""
+    loaded, warnings = {}, {}
+    for (name, lib), (proc, path) in started.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} ({lib}):\n{out}")
+        loaded[(name, lib)] = _load(lib, path)
+        warnings[name] = warnings.get(name, []) + [
+            line.strip() for line in out.splitlines()
+            if re.search(r"[1-9]\d* bytes spill|C75\d\d", line)]
+    return loaded, warnings
+
+
+@contextlib.contextmanager
+def cuda_core_in_place(cdll):
+    """The float32 wrappers launch the yardstick's kernels inside (the
+    shipped float32 libraries are loaded first and put back after)."""
+    saved = {lib: _build.load(lib) for lib in F32_LIBS}
+    try:
+        for lib in F32_LIBS:
+            _build._loaded[lib] = cdll
+        yield
+    finally:
+        _build._loaded.update(saved)
 
 
 def _time_in_turns(builds, call, rounds: int) -> dict[str, list[float]]:
@@ -168,16 +244,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("flash_d32_variants: needs a CUDA card")
 
-    started = _start_builds(["shipped", *VARIANTS])
-    loaded, warnings = {}, {}
-    for (name, lib), (proc, path) in started.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {name} ({lib}):\n{out}")
-        loaded[(name, lib)] = _load(lib, path)
-        warnings[name] = warnings.get(name, []) + [
-            line.strip() for line in out.splitlines()
-            if re.search(r"[1-9]\d* bytes spill|C75\d\d", line)]
+    started = _start_builds(["shipped", *VARIANTS, "cuda_core"])
+    loaded, warnings = finish(started)
+    cuda_core = loaded.pop(("cuda_core", "cuda_core"))
+    for lib in F32_LIBS:  # the yardstick takes turns in both libraries
+        loaded[("cuda_core", lib)] = cuda_core
     print(json.dumps({"ptxas_warnings": warnings}), flush=True)
 
     def builds_of(lib):
@@ -186,14 +257,20 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     scale = 32 ** -0.5
+    bf16, f32 = torch.bfloat16, torch.float32
     with torch.no_grad():
-        for kernel, shapes, lib in (("K1", FORWARD_SHAPES[:2], "flash_d32"),
-                                    ("K1r", FORWARD_SHAPES[2:], "flash_d32"),
-                                    ("K1b", BACKWARD_SHAPES, "flash_d32_bwd")):
+        for kernel, shapes, lib, dtype in (
+                ("K1", FORWARD_SHAPES[:2], "flash_d32", bf16),
+                ("K1r", FORWARD_SHAPES[2:], "flash_d32", bf16),
+                ("K1b", BACKWARD_SHAPES, "flash_d32_bwd", bf16),
+                ("K1", F32_FORWARD_SHAPES[:2], "flash_d32_f32", f32),
+                ("K1r", F32_FORWARD_SHAPES[2:], "flash_d32_f32", f32),
+                ("K1b", BACKWARD_SHAPES, "flash_d32_f32_bwd", f32)):
             builds = builds_of(lib)
+            fwd_lib = "flash_d32" if dtype == bf16 else "flash_d32_f32"
             for b, h, n in shapes:
                 q, k, v, do = (torch.randn((b, h, n, 32), generator=gen,
-                                           device="cuda").to(torch.bfloat16)
+                                           device="cuda").to(dtype)
                                for _ in range(4))
                 if kernel == "K1":
                     def call():
@@ -202,15 +279,18 @@ def main() -> None:
                     def call():
                         return flash_sdpa_with_lse(q, k, v, scale)
                 else:  # the backward's inputs from the shipped forward
-                    _build._loaded["flash_d32"] = loaded[("shipped", "flash_d32")]
+                    _build._loaded[fwd_lib] = loaded[("shipped", fwd_lib)]
                     o, lse = flash_sdpa_with_lse(q, k, v, scale)
 
                     def call():
                         return flash_sdpa_backward(q, k, v, o, lse, do, scale)
                 ms = _time_in_turns(builds, call, args.rounds)
-                print(json.dumps({"kernel": kernel, "shape": [b, h, n, 32],
+                print(json.dumps({"kernel": kernel, "dtype": str(dtype),
+                                  "shape": [b, h, n, 32],
                                   "ms_quartiles": ms, "max_diff_vs_shipped":
                                   _max_diff(builds, call)}), flush=True)
+                del q, k, v, do
+                torch.cuda.empty_cache()
     _build._loaded.clear()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

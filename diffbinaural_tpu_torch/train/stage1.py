@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 
 from ..core.device import resolve_device
+from ..core.precision import full_precision
 from ..diffusion import GaussianDiffusion
 from ..infer.stage1 import normalize_mel
 from ..models.visual import apply_visual
@@ -180,9 +181,9 @@ def make_stage1_train_step(
         optimizer = state.optimizer
         optimizer.zero_grad(set_to_none=True)
         # dropout stays off in training, as in the JAX train step
-        with _dropout_off(state.unet, state.visual):
+        with full_precision(), _dropout_off(state.unet, state.visual):
             loss = loss_fn(state, batch, generator, t, noise, drop)
-        loss.backward()
+            loss.backward()
 
         grad_norm = apply_update_(optimizer, state.lr_scale, clip_norm,
                                   clip_value)

@@ -36,7 +36,6 @@ default is on) and restores the caller's setting after.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -45,6 +44,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
+from ..core.precision import full_precision
 from ..losses import (discriminator_loss, feature_loss, generator_loss,
                       simple_silence_aware_mel_loss)
 from .stage1 import clip_by_global_norm_
@@ -58,20 +58,6 @@ class Stage2TrainState:
     mrd: nn.Module            # the MRD, MBD or sub-band CQTD
     gen_opt: torch.optim.Optimizer
     disc_opt: torch.optim.Optimizer
-
-
-@contextlib.contextmanager
-def _full_precision():
-    """float32 cuDNN convolutions and cuBLAS matmuls without TF32."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def _params(*modules):
@@ -182,7 +168,7 @@ def make_stage2_train_step(
         return loss_gen + loss_fm, loss_gen, loss_fm
 
     def step_fn(state: Stage2TrainState, batch: Dict):
-        with _full_precision():
+        with full_precision():
             return _step(state, batch)
 
     def _step(state: Stage2TrainState, batch: Dict):
