@@ -48,11 +48,13 @@ weights from a seed:
     train CLI, the evaluation and this check — e.g. from a copy of this
     script beside an older tree, to compare the two in one process each).
 
-The float32 attention kernels (split-TF32 products on ``wgmma``) are timed
-beside the earlier CUDA-core kernels they replaced (``cuda_core_ms``,
-``ops/csrc_variants/flash_d32_cuda_core.cu``) and beside two bounds: the
-split-TF32 floor (3 x FLOP over the TF32 peak, ``bound_ms``) and the CUDA
-cores' floor (``cuda_core_bound_ms``).
+The float32 attention kernels and the float32 K3 (split-TF32 products on
+``wgmma``) are timed beside the earlier CUDA-core kernels they replaced
+(``cuda_core_ms``, ``ops/csrc_variants/flash_d32_cuda_core.cu`` and
+``snake_conv_cuda_core.cu``) and beside two bounds: the split-TF32 floor (3 x
+FLOP over the TF32 peak, ``bound_ms``; K3 adds its activation on the CUDA
+cores once per output-channel block) and the CUDA cores' floor
+(``cuda_core_bound_ms``).
 
 Each path's launch counts are set to 0 before it and checked after it.
 Every phase prints one JSON line; any failure exits non-zero.  There is no
@@ -88,6 +90,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -316,27 +319,37 @@ def phase_device() -> dict:
 
 
 TILED_K2B = None  # the earlier tiled K2b, built by phase_build (K2b's yardstick)
-# the earlier float32 attention kernels on the CUDA cores, built by
-# phase_build: the yardstick of the split-TF32 kernels (``cuda_core_ms``)
+# the earlier float32 attention kernels and float32 K3 on the CUDA cores,
+# built by phase_build: the yardsticks of the split-TF32 kernels
+# (``cuda_core_ms``)
 CUDA_CORE_F32 = None
+CUDA_CORE_K3 = None
 
 
 def phase_build() -> None:
-    global TILED_K2B, CUDA_CORE_F32
+    global TILED_K2B, CUDA_CORE_F32, CUDA_CORE_K3
     from diffbinaural_tpu_torch.ops import _build
     from diffbinaural_tpu_torch.ops import alias_free_act_variants as afv
     from diffbinaural_tpu_torch.ops import flash_d32_variants as fv
+    from diffbinaural_tpu_torch.ops import snake_conv_variants as scv
 
     t0 = time.time()
     variants = afv.start(["tiled"])
     cuda_core = fv.start_cuda_core()
+    cuda_core_k3 = scv.start_cuda_core()
     logs = _build.build_all(verbose=True)
     for name in _build.KERNELS:
         _build.load(name)
     TILED_K2B = afv.finish(variants)["tiled"]
     CUDA_CORE_F32 = fv.finish(cuda_core)[0][("cuda_core", "cuda_core")]
+    CUDA_CORE_K3 = scv.finish(cuda_core_k3)[0][("cuda_core", "snake_conv_f32")]
     ptxas = {name: [ln for ln in log.splitlines() if "registers" in ln
                     or "spill" in ln][:8] for name, log in logs.items()}
+    # the float32 K3's 192-channel block holds 2 x 96 accumulator registers
+    # of its 255: a spill there is a register plan that no longer fits
+    if re.search(r"[1-9]\d* bytes spill", logs.get("snake_conv_f32", "")):
+        fail("build: ptxas spills in snake_conv_f32: "
+             + "; ".join(ptxas["snake_conv_f32"]))
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "libraries": sorted(p.name for p in _build.BUILD_DIR.glob("*.so")),
           "ptxas": ptxas})
@@ -422,7 +435,8 @@ def check_k1(gen, results):
             results.append(case)
 
 
-def _bound(case, flops, nbytes, dtype_name, exps=None, split_tf32=False):
+def _bound(case, flops, nbytes, dtype_name, exps=None, split_tf32=False,
+           cuda_core_flops=0.0):
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the card's peak for them.  The
     operations' floor is the FLOP over the peak of their type and, where the
@@ -432,14 +446,19 @@ def _bound(case, flops, nbytes, dtype_name, exps=None, split_tf32=False):
     as three TF32 products on the tensor cores, the float32 attention
     kernels' route: the FLOP floor is 3 x FLOP over the TF32 peak, and the
     floor on the CUDA cores (FLOP over the float32 peak) is kept beside it
-    as ``cuda_core_bound_ms``."""
-    flop_floor = (3.0 * flops / PEAK_FLOPS["tf32"] if split_tf32
-                  else flops / PEAK_FLOPS[dtype_name])
-    floors = {"flop": flop_floor * 1e3,
+    as ``cuda_core_bound_ms``.  ``cuda_core_flops``: work of a split-TF32
+    function that the CUDA cores do beside its products (K3's activation,
+    counted once): its own floor over the float32 peak, which may overlap
+    the tensor cores' as the exponentials do."""
+    floors = {"flop": (3.0 * flops / PEAK_FLOPS["tf32"] if split_tf32
+                       else flops / PEAK_FLOPS[dtype_name]) * 1e3,
               "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
     if exps is not None:
         floors["exp2"] = exps / EXP_PER_S * 1e3
-    t_ops = max(floors["flop"], floors.get("exp2", 0.0))
+    if cuda_core_flops:
+        floors["cuda_cores"] = cuda_core_flops / PEAK_FLOPS["fp32"] * 1e3
+    t_ops = max(floors["flop"], floors.get("exp2", 0.0),
+                floors.get("cuda_cores", 0.0))
     case["bound_ms"] = max(t_ops, floors["bytes"])
     case["bound_by"] = "operations" if t_ops >= floors["bytes"] else "bytes"
     case["bound_floors_ms"] = floors
@@ -452,16 +471,26 @@ def _bound(case, flops, nbytes, dtype_name, exps=None, split_tf32=False):
 def cuda_core_ms(fn, **kwargs) -> float:
     """``time_ms`` of ``fn`` with the float32 attention wrappers launching
     the earlier CUDA-core kernels in place of the split-TF32 ones."""
-    from diffbinaural_tpu_torch.ops import flash_d32_variants as fv
+    from diffbinaural_tpu_torch.ops import _build
+    from diffbinaural_tpu_torch.ops.flash_d32_variants import F32_LIBS
 
-    with fv.cuda_core_in_place(CUDA_CORE_F32):
+    with _build.in_place(F32_LIBS, CUDA_CORE_F32):
         return time_ms(fn, **kwargs)
+
+
+def k3_cuda_core(fn):
+    """``fn`` called with the float32 K3 wrapper launching the earlier
+    CUDA-core kernel in place of the split-TF32 one."""
+    from diffbinaural_tpu_torch.ops import _build
+
+    with _build.in_place("snake_conv_f32", CUDA_CORE_K3):
+        return fn()
 
 
 def _same_bits_twice(name, case, first, again) -> bool:
     """A second call gives ``first``'s bits (tensors or tuples of tensors):
-    the attention kernels own their outputs (no atomics).  Fails otherwise;
-    returns True for the case's record."""
+    the attention kernels and K3 own their outputs (no atomics).  Fails
+    otherwise; returns True for the case's record."""
     firsts = first if isinstance(first, tuple) else (first,)
     second = again()
     seconds = second if isinstance(second, tuple) else (second,)
@@ -629,6 +658,11 @@ def check_k1_training(gen, results):
 
 K2_STAGES = [(768, 3444), (384, 13776), (192, 27552), (96, 55104),
              (48, 110208), (24, 220416)]
+# inference_e2e's vocoder pass in float32, one channel at a time (batch 1):
+# a 10 s clip's 861 mel frames padded to 896 (the Vocoder's pad multiple of
+# 64), upsampled 4x, 4x, then 2x four times
+K2_E2E = [(768, 3584), (384, 14336), (192, 28672), (96, 57344),
+          (48, 114688), (24, 229376)]
 GAN_STAGES = [(768, 256), (384, 1024), (192, 2048), (96, 4096), (48, 8192),
               (24, 16384)]  # the stage-2 step's six (C, T) at batch 16
 # per sample: two up-FIR phases (6 mul + 5 add + gain), two snakes (3 mul,
@@ -650,10 +684,13 @@ def check_k2(gen, results):
 
     shapes = ([(2, c, t) for c, t in K2_STAGES]
               + [(GAN_BATCH, c, t) for c, t in GAN_STAGES]
+              + [(1, c, t) for c, t in K2_E2E]
               + [(2, 48, 1001), (3, 5, 7), (2, 3, 1)])
     for b, c, t in shapes:
         for dtype, tol, rel in ((torch.float32, 1e-5, False),
                                 (torch.bfloat16, 8e-3, True)):
+            if b == 1 and (c, t) in K2_E2E and dtype != torch.float32:
+                continue  # inference_e2e runs the vocoder in float32
             x = rand(gen, (b, c, t), dtype)
             alpha = rand(gen, (c,), torch.float32, 0.3)
             beta = rand(gen, (c,), torch.float32, 0.3)
@@ -664,7 +701,8 @@ def check_k2(gen, results):
             case = {"kernel": "fused_alias_free_snake", "shape": [b, c, t],
                     "dtype": dt_name(dtype), "max_err": err, "tol": tol,
                     "tol_relative_to_output_scale": rel}
-            if (c, t) in K2_STAGES or (c, t) in GAN_STAGES:
+            if (c, t) in K2_STAGES or (c, t) in GAN_STAGES or (
+                    b == 1 and (c, t) in K2_E2E):
                 def run():
                     return fused_alias_free_snake(x, alpha, beta, True)
                 case["ms"] = graph_ms(run)
@@ -686,7 +724,11 @@ def _k3_case(gen, results, b, c, t, k, d, dtype, tol, timed):
     add ``ms`` (graph-replayed calls: the kernel, the weight's relayout
     and the parameters' preparation), ``eager_ms``, ``kernel_ms``,
     ``host_us_per_call`` and ``unfused_ms``, the route the fusion replaces
-    timed the same way: the port's K2 then ``F.conv1d`` in x's type."""
+    timed the same way: the port's K2 then ``F.conv1d`` in x's type.
+    float32 cases also give the same bits twice, and timed ones add
+    ``cuda_core_ms`` (the earlier CUDA-core kernel in the wrapper's place, held
+    to the same tolerance) and the split-TF32 bound beside the CUDA cores'
+    (``cuda_core_bound_ms``)."""
     from diffbinaural_tpu_torch.ops import (fused_alias_free_snake,
                                             fused_snake_conv, snake_conv_plain)
 
@@ -703,6 +745,17 @@ def _k3_case(gen, results, b, c, t, k, d, dtype, tol, timed):
             "dilation": d, "dtype": dt_name(dtype), "max_err": err,
             "tol": tol, "tol_relative_to_output_scale": True,
             "err_of_scale": err / want.float().abs().max().item()}
+    fp32 = dtype == torch.float32
+    if fp32:
+        case["bit_identical_repeat"] = _same_bits_twice(
+            "fused_snake_conv", (b, c, t, k, d, "fp32"), got,
+            lambda: fused_snake_conv(x, alpha, beta, w, bias, d, True))
+        if timed:
+            case["cuda_core_max_err"] = _compare(
+                "fused_snake_conv (CUDA-core yardstick)", (b, c, t, k, d),
+                k3_cuda_core(lambda: fused_snake_conv(x, alpha, beta, w, bias,
+                                                      d, True)),
+                want, tol, relative=True)
     del got, want
     if timed:
         pad = (k - 1) // 2 * d
@@ -724,9 +777,23 @@ def _k3_case(gen, results, b, c, t, k, d, dtype, tol, timed):
         case["plain_ms"] = time_ms(
             lambda: snake_conv_plain(x, alpha, beta, w, bias, d, True))
         case["library_ms"] = None
-        flops = 2.0 * b * t * k * c * c + K2_OPS_PER_SAMPLE * b * c * t
+        conv = 2.0 * b * t * k * c * c
+        act = K2_OPS_PER_SAMPLE * b * c * t
         nbytes = (2.0 * b * c * t + k * c * c) * x.element_size() + 12 * c
-        _bound(case, flops, nbytes, dt_name(dtype))
+        if fp32:
+            case["cuda_core_ms"] = k3_cuda_core(lambda: graph_ms(run))
+            # split TF32: the products on the tensor cores, the activation
+            # (once: the kernel's recomputation per output-channel block is
+            # its design's cost, not the function's) on the CUDA cores
+            _bound(case, conv, nbytes, "fp32", split_tf32=True,
+                   cuda_core_flops=act)
+            # the CUDA cores' floor as the attention kernels' rows count it:
+            # the whole function, the activation once
+            case["cuda_core_bound_ms"] = max(
+                (conv + act) / PEAK_FLOPS["fp32"] * 1e3,
+                case["bound_floors_ms"]["bytes"])
+        else:
+            _bound(case, conv + act, nbytes, dt_name(dtype))
     results.append(case)
 
 
@@ -743,13 +810,16 @@ K3_E2E = (1, 896 * 4)
 def check_k3(gen, results):
     """fused_snake_conv vs its plain version (plain activation +
     ``F.conv1d``).  float32: 2e-4 of the output's scale (sums of 768*k terms
-    in another order); bfloat16: 2e-2 of the output's scale (both round the
-    activation to bfloat16; the products' sums in another order).  The
-    serving and stage-2 shapes are timed in both types (bfloat16 against
-    the unfused route too), a 40-sample clip and a ragged T are compared,
-    the ungated shapes are compared and timed in bfloat16, and the six
-    float32 shapes of ``inference_e2e`` (K3_E2E) are timed beside the
-    unfused route with TF32 off."""
+    in another order, each product as three TF32 products: the dropped
+    a_lo b_lo terms are ~2^-21 of a product), the same bits in two runs;
+    bfloat16: 2e-2 of the output's scale (both round the activation to
+    bfloat16; the products' sums in another order).  The serving and
+    stage-2 shapes are timed in both types (bfloat16 against the unfused
+    route too), a 40-sample clip and a ragged T are compared, the ungated
+    shapes are compared and timed in bfloat16, and the six float32 shapes
+    of ``inference_e2e`` (K3_E2E) are timed beside the unfused route with
+    TF32 off; every timed float32 shape also beside the earlier CUDA-core
+    kernel (``cuda_core_ms``)."""
     c = 768
     cases = [(b, t, k, d) for b, t in ((2, 3444), (GAN_BATCH, 256))
              for k in (3, 7) for d in (1, 3, 5)]
@@ -3760,11 +3830,20 @@ def main() -> None:
                  "bit_identical_repeat")
     rows = {r["name"]: r for r in line["kernels"]}
     rows["fused_snake_conv"]["fp32_inference_e2e"] = [
-        {k: c[k] for k in ("shape", "k", "dilation", "ms", "unfused_ms",
-                           "kernel_ms", "bound_ms", "bound_by", "plain_ms",
-                           "max_err")}
+        {"source": "diffbinaural_tpu_torch/ops/csrc/snake_conv_f32.cu",
+         **{k: c[k] for k in ("shape", "k", "dilation", "ms", "unfused_ms",
+                              "cuda_core_ms", "kernel_ms", "bound_ms",
+                              "bound_by", "cuda_core_bound_ms", "plain_ms",
+                              "max_err", "err_of_scale",
+                              "bit_identical_repeat")}}
         for c in cases if c["kernel"] == "fused_snake_conv"
         and c["dtype"] == "fp32" and c["shape"] == [K3_E2E[0], 768, K3_E2E[1]]]
+    rows["fused_alias_free_snake"]["fp32_inference_e2e"] = [
+        {k: c[k] for k in ("shape", "ms", "kernel_ms", "bound_ms", "bound_by",
+                           "plain_ms", "max_err")}
+        for c in cases if c["kernel"] == "fused_alias_free_snake"
+        and c["dtype"] == "fp32" and c["shape"][0] == 1
+        and tuple(c["shape"][1:]) in K2_E2E]
     rows["flash_sdpa"]["fp32"] = {k: k1_fp32[0][k] for k in fp32_keys}
     rows["flash_sdpa"]["fp32_test_cli"] = [{k: c[k] for k in fp32_keys}
                                            for c in k1_fp32]

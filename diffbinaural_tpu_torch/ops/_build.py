@@ -18,6 +18,7 @@ never loaded.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -82,14 +83,21 @@ KERNELS = {
     ),
     "snake_conv": (
         "snake_conv.cu",
-        # x, alpha, inv_beta, w (float32: (k, Cin, Cout); bfloat16: the
-        # blocked layout of snake_conv.py:blocked_weight), bias, out, B, C,
-        # T, k, dilation, is_bf16, stream
+        # x, alpha, inv_beta, w (the blocked layout of
+        # snake_conv.py:blocked_weight), bias, out, B, C, T, k, dilation,
+        # stream (bfloat16)
         {"snake_conv_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _P],
+                                _P],
          # dy, w (blocked_weight of the flipped, transposed kernel), dz, B,
          # C, T, k, dilation, stream
          "snake_conv_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    ),
+    "snake_conv_f32": (
+        "snake_conv_f32.cu",
+        # x, alpha, inv_beta, w ((C, C, k)), w_split (scratch), bias, out, B,
+        # C, T, k, dilation, stream (float32)
+        {"snake_conv_f32_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _P]},
     ),
     "snake_conv_wgrad": (
         "snake_conv_wgrad.cu",
@@ -132,6 +140,15 @@ def _taps_header() -> str:
     return "\n".join(lines) + "\n"
 
 
+def write_taps_header() -> str:
+    """Write ``afa_taps.h`` into the build directory, where every kernel's
+    compile finds it; returns its text."""
+    taps = _taps_header()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    (BUILD_DIR / "afa_taps.h").write_text(taps)
+    return taps
+
+
 def _target(name: str) -> tuple[Path, Path, str]:
     """(source path, library path, tap header text) for one kernel."""
     src = CSRC / KERNELS[name][0]
@@ -148,11 +165,10 @@ def _target(name: str) -> tuple[Path, Path, str]:
 
 def _start(name: str, verbose: bool = False):
     """Start nvcc for one kernel; returns (Popen or None, library path)."""
-    src, lib, taps = _target(name)
+    src, lib, _ = _target(name)
     if lib.exists():
         return None, lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    (BUILD_DIR / "afa_taps.h").write_text(taps)
+    write_taps_header()
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(BUILD_DIR), "-I", str(CSRC)]
     if verbose:
@@ -190,6 +206,26 @@ def load(name: str) -> ctypes.CDLL:
         _finish(name, proc, lib)
         _loaded[name] = bind(ctypes.CDLL(str(lib)), name)
     return _loaded[name]
+
+
+@contextlib.contextmanager
+def in_place(names, cdll: ctypes.CDLL):
+    """Inside, the wrappers of kernel library ``names`` (one name or several)
+    launch ``cdll``'s kernels: a variant or an earlier design built from
+    another source that exports the same functions.  What was loaded before
+    is put back after."""
+    names = [names] if isinstance(names, str) else list(names)
+    saved = {name: _loaded.get(name) for name in names}
+    try:
+        for name in names:
+            _loaded[name] = cdll
+        yield
+    finally:
+        for name, before in saved.items():
+            if before is None:
+                _loaded.pop(name, None)
+            else:
+                _loaded[name] = before
 
 
 def bind(cdll: ctypes.CDLL, name: str) -> ctypes.CDLL:

@@ -80,8 +80,7 @@ def source(name: str) -> str:
 
 def start(names) -> dict:
     """Start one nvcc per variant, all at once; {name: (Popen, library)}."""
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    (_build.BUILD_DIR / "afa_taps.h").write_text(_build._taps_header())
+    _build.write_taps_header()
     root = _build.BUILD_DIR / "variants_afb"
     shutil.rmtree(root, ignore_errors=True)
     started = {}

@@ -10,9 +10,10 @@
 // up-FIR, snake, replicate-pad the 2x-rate signal, down-FIR): the index of x
 // is clamped to [0, T-1] AND the lattice index n is clamped to [0, 2T-1].
 // All arithmetic is float32.  The shared-memory helpers below (afa_stage_x,
-// afa_mid, afa_down; the float32 K3) use the exact sinf; the register-blocked
-// code at the end of the file (K2, K2b and the bfloat16 K3's activation)
-// uses a range-reduced hardware sine (afa_sin2, afa_sincos_pi).
+// afa_mid; the earlier kernels kept as yardsticks under csrc_variants/) use
+// the exact sinf; the register-blocked code at the end of the file (K2, K2b
+// and both K3 activations) uses a range-reduced hardware sine (afa_sin2,
+// afa_sincos_pi).
 #pragma once
 
 #include <cuda_bf16.h>

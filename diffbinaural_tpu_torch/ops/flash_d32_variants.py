@@ -14,8 +14,8 @@ longer applies fails before anything is built
 them, ``cuda_core`` is the float32 kernels' earlier design
 (``csrc_variants/flash_d32_cuda_core.cu``: one thread per row on the CUDA
 cores), the float32 kernels' yardstick: it exports the float32 libraries'
-functions, and :func:`cuda_core_in_place` puts it in their place, so that
-the wrappers time it (``chip_smoke.py``'s ``cuda_core_ms``).  On a machine
+functions, and ``_build.in_place(F32_LIBS, ...)`` puts it in their place,
+so that the wrappers time it (``chip_smoke.py``'s ``cuda_core_ms``).  On a machine
 with a card and ``nvcc``:
 
     python3 -m diffbinaural_tpu_torch.ops.flash_d32_variants [--rounds 12]
@@ -32,7 +32,6 @@ and ptxas's lines on spills or serialised ``wgmma``.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
 import re
@@ -183,19 +182,6 @@ def finish(started) -> dict:
     return loaded, warnings
 
 
-@contextlib.contextmanager
-def cuda_core_in_place(cdll):
-    """The float32 wrappers launch the yardstick's kernels inside (the
-    shipped float32 libraries are loaded first and put back after)."""
-    saved = {lib: _build.load(lib) for lib in F32_LIBS}
-    try:
-        for lib in F32_LIBS:
-            _build._loaded[lib] = cdll
-        yield
-    finally:
-        _build._loaded.update(saved)
-
-
 def _time_in_turns(builds, call, rounds: int) -> dict[str, list[float]]:
     """ms per launch of ``call`` for each build: the quartiles over
     ``rounds`` turns.  In its turn a build's library is put in the wrapper's
@@ -206,16 +192,16 @@ def _time_in_turns(builds, call, rounds: int) -> dict[str, list[float]]:
         order = list(builds) if r % 2 == 0 else list(reversed(builds))
         for name in order:
             lib, cdll = builds[name]
-            _build._loaded[lib] = cdll
-            call()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(5):
+            with _build.in_place(lib, cdll):
                 call()
-            end.record()
-            end.synchronize()
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(5):
+                    call()
+                end.record()
+                end.synchronize()
             times[name].append(start.elapsed_time(end) / 5)
     return {name: statistics.quantiles(t, n=4) for name, t in times.items()}
 
@@ -225,8 +211,8 @@ def _max_diff(builds, call) -> dict[str, float]:
     build's, on the same inputs."""
     outs = {}
     for name, (lib, cdll) in builds.items():
-        _build._loaded[lib] = cdll
-        outs[name] = call()
+        with _build.in_place(lib, cdll):
+            outs[name] = call()
     ref = outs["shipped"]
     return {name: max(float((a.float() - b.float()).abs().max())
                       for a, b in zip(out, ref))
@@ -279,8 +265,8 @@ def main() -> None:
                     def call():
                         return flash_sdpa_with_lse(q, k, v, scale)
                 else:  # the backward's inputs from the shipped forward
-                    _build._loaded[fwd_lib] = loaded[("shipped", fwd_lib)]
-                    o, lse = flash_sdpa_with_lse(q, k, v, scale)
+                    with _build.in_place(fwd_lib, loaded[("shipped", fwd_lib)]):
+                        o, lse = flash_sdpa_with_lse(q, k, v, scale)
 
                     def call():
                         return flash_sdpa_backward(q, k, v, o, lse, do, scale)
@@ -291,7 +277,6 @@ def main() -> None:
                                   _max_diff(builds, call)}), flush=True)
                 del q, k, v, do
                 torch.cuda.empty_cache()
-    _build._loaded.clear()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip(), flush=True)

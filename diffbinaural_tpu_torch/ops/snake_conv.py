@@ -5,7 +5,8 @@
 Replaces the TPU code of ``diffbinaural_tpu/ops/snake_conv.py``:
 
   * K3, the forward (``fused_snake_conv`` -> ``_fused_forward`` ->
-    ``_kernel``): the CUDA kernel in ``csrc/snake_conv.cu``;
+    ``_kernel``): the CUDA kernels in ``csrc/snake_conv.cu`` (bfloat16) and
+    ``csrc/snake_conv_f32.cu`` (float32);
   * K3b, the backward (``_core_bwd``, which has no kernel of its own on
     the TPU: it differentiates the activation core and an XLA
     convolution): in bfloat16, recompute the activation with K2, dz by the
@@ -27,9 +28,12 @@ memory.  In bfloat16 the kernel is an implicit GEMM on the tensor cores
 halo over all input channels once into shared memory, rounded to bfloat16
 as the plain version rounds it, and multiplies the k shifted row windows of
 it by the weight, streamed in the layout of :func:`blocked_weight`.  In
-float32 it runs on the CUDA cores (tensor-core TF32 would not meet the
-float32 checks).  Rows outside the clip are zeroed before the taps, so the
-convolution's zero padding is exact.  Edge semantics of the activation are
+float32 the same implicit GEMM takes every product as three TF32 products
+(split TF32: one TF32 product alone would not meet the float32 checks) over
+chunks of 64 input channels, each chunk activated into shared memory as tf32
+hi / lo halves and summed in a fresh accumulator; the weight's split is a
+pre-pass into a scratch of 2 k C^2 floats.  Rows outside the clip are zeroed
+before the taps, so the convolution's zero padding is exact.  Edge semantics of the activation are
 those of ``ops.alias_free_act`` (the unfused composition's, on every
 sample).
 """
@@ -92,6 +96,13 @@ def _check_conv(name, x, alpha, beta, weight, bias, dilation) -> int:
         raise ValueError(f"{name}: dilation must be >= 1")
     _check_device(name, x)
     return dilation
+
+
+def f32_co_block(c: int) -> int:
+    """Output channels per block of the float32 kernel
+    (``csrc/snake_conv_f32.cu:scf_co_block``): 192 where C allows, else
+    128."""
+    return 192 if c % 192 == 0 else LANE
 
 
 def co_block(c: int, b: int = 0, t: int = 0, sms: int = 0) -> int:
@@ -182,29 +193,33 @@ def _copied(view, dtype):
 
 def _forward(x, alpha, beta, weight, bias, dilation: int, logscale: bool):
     """The forward without autograd: the plain version on the CPU, K3 on a
-    card (the tensor-core kernel for bfloat16, the CUDA-core kernel for
-    float32)."""
+    card (both types on the tensor cores: bfloat16 products, or float32 ones
+    as split-TF32 products)."""
     if x.device.type == "cpu":
         return snake_conv_plain(x, alpha, beta, weight, bias, dilation, logscale)
     a, inv_b = _effective(alpha, beta, logscale)
     b, c, t = x.shape
-    if x.dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        w = blocked_weight(weight, blk=co_block(c, b, t, sms))
-    else:  # tap-major, (k, C_in, C_out)
-        w = weight.float().permute(2, 1, 0).contiguous()
+    k = weight.shape[2]
     x = aligned(x)
     bias32 = bias.float().contiguous()
     out = torch.empty_like(x)
-    k = weight.shape[2]
     with torch.cuda.device(x.device):
-        lib = _build.load("snake_conv")
-        code = lib.snake_conv_forward(
-            x.data_ptr(), a.data_ptr(), inv_b.data_ptr(), w.data_ptr(),
-            bias32.data_ptr(), out.data_ptr(), b, c, t, k, dilation,
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if x.dtype == torch.bfloat16:
+            sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+            w = blocked_weight(weight, blk=co_block(c, b, t, sms))
+            code = _build.load("snake_conv").snake_conv_forward(
+                x.data_ptr(), a.data_ptr(), inv_b.data_ptr(), w.data_ptr(),
+                bias32.data_ptr(), out.data_ptr(), b, c, t, k, dilation, stream)
+        else:
+            w = weight.float().contiguous()
+            # the weight's tf32 hi / lo stages, written by the kernel's pre-pass
+            w_split = torch.empty(2 * k * c * c, dtype=torch.float32,
+                                  device=x.device)
+            code = _build.load("snake_conv_f32").snake_conv_f32_forward(
+                x.data_ptr(), a.data_ptr(), inv_b.data_ptr(), w.data_ptr(),
+                w_split.data_ptr(), bias32.data_ptr(), out.data_ptr(), b, c, t,
+                k, dilation, stream)
     _build.check_launch("fused_snake_conv", code)
     fused_snake_conv.launches += 1
     return out
@@ -398,8 +413,8 @@ def fused_snake_conv_backward_composed(x, dy, alpha, beta, weight, bias,
     by the library's convolution gradients (in x's type with float32
     accumulation), db = sum of dy in float32, and dx, d alpha, d beta by
     K2b.  The float32 route of :func:`fused_snake_conv_backward` on a card
-    (float32 products on the tensor cores would be TF32, which the float32
-    checks refuse; so the float32 K3 stays on the CUDA cores too)."""
+    (on the TPU these gradients are XLA's VJP outside any Pallas kernel,
+    ``diffbinaural_tpu/ops/snake_conv.py:_core_bwd``)."""
     dilation = _check_backward("fused_snake_conv_backward_composed", x, dy,
                                alpha, beta, weight, bias, dilation)
     z = _act_forward(x, alpha, beta, logscale)
