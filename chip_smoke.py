@@ -36,6 +36,12 @@ weights from a seed:
     against the same through the plain versions (float32, batch 2), then
     optimiser steps with a bfloat16 generator at batch 16 x 16384 samples;
   * training from files — the train CLIs on synthetic worlds on disk;
+  * the mesh (``parallel/``) — on a world-1 NCCL group that the script
+    opens (the machine has one card): the stage-1 and stage-2 steps through
+    ``make_mesh()``'s mesh bit for bit against the steps without a group,
+    the 10 s clip through ``BinauralPipeline(mesh=)`` as one group, and
+    ``train_realbinaural`` under ``python -m torch.distributed.run``
+    against the same CLI without a launcher;
   * evaluation on a test split — checkpoints written by the port (the
     UNet, ``ClipPos2D`` over ViT-B/32, the production generator), the four
     test CLIs on the stage-1 world's val clips (``test_realbinaural`` bit
@@ -2233,9 +2239,10 @@ def build_gan(gen_dtype, seed: int):
     return h, gen, mpd, mrd
 
 
-def make_gan_step(h, gen, mpd, mrd, remat=False):
+def make_gan_step(h, gen, mpd, mrd, remat=False, mesh=None):
     """``make_stage2_train_step`` wired as the JAX package's GAN trainer
-    wires it from the config (``cli/gan_common.py``), ``remat`` as given."""
+    wires it from the config (``cli/gan_common.py``), ``remat`` and
+    ``mesh`` as given."""
     from diffbinaural_tpu_torch.losses import MultiScaleMelSpectrogramLoss
     from diffbinaural_tpu_torch.signal import mel_spectrogram
     from diffbinaural_tpu_torch.train import make_stage2_train_step
@@ -2254,7 +2261,7 @@ def make_gan_step(h, gen, mpd, mrd, remat=False):
         lambda_melloss=h.get("lambda_melloss", 45.0), freeze_step=0,
         use_multiscale_melloss=h.get("use_multiscale_melloss", False),
         silence_threshold_db=h.get("silence_threshold_db", -50.0),
-        remat=remat)
+        remat=remat, mesh=mesh)
 
 
 def gan_batch(h, batch: int, seed: int) -> dict:
@@ -2736,6 +2743,7 @@ def recorded_first_step(common):
             out = step_fn(state, batch, generator=generator, **draws)
             if first:
                 record["after"] = params(out[0])
+                record["loss"] = out[1]["loss"].item()
             return out
 
         return init_fn, step
@@ -2918,6 +2926,396 @@ def phase_train_cli_stage1(world: str, workdir: str) -> dict:
         validation_clips=WORLD_VAL, checkpoints=files)
     del first, second
     torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------ the mesh (parallel/)
+
+# the train CLI under torch.distributed.run: deterministic algorithms and
+# TF32 off as in this script, the first steps' losses recorded by wrapping
+# the trainer's step; then the CLI module runs as __main__
+LAUNCHED_CLI = '''\
+import json, os, runpy, sys
+import torch
+import torch.distributed as dist
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True, warn_only=True)
+from diffbinaural_tpu_torch.cli import common
+make, record = common.make_stage1_train_step, {"losses": []}
+def recording_make(*args, **kwargs):
+    init_fn, step_fn = make(*args, **kwargs)
+    def step(state, batch, generator=None, **draws):
+        out = step_fn(state, batch, generator=generator, **draws)
+        record["losses"].append(out[1]["loss"].item())
+        record.update(backend=dist.get_backend(),
+                      world_size=dist.get_world_size(),
+                      device=str(out[1]["loss"].device))
+        return out
+    return init_fn, step
+common.make_stage1_train_step = recording_make
+out_path = sys.argv.pop(1)
+sys.argv[0] = "train_realbinaural"
+runpy.run_module("diffbinaural_tpu_torch.cli.train_realbinaural",
+                 run_name="__main__", alter_sys=True)
+record["group_left"] = not dist.is_initialized()
+with open(out_path, "w") as f:
+    json.dump(record, f)
+'''
+
+
+def _same_floats(name, got: dict, want: dict) -> None:
+    """Python floats of two maps equal bit for bit."""
+    if got.keys() != want.keys():
+        fail(f"{name}: the keys differ")
+    for k, v in want.items():
+        if repr(got[k]) != repr(v):
+            fail(f"{name}: {k} {got[k]!r} against {v!r} (bit for bit "
+                 "expected)")
+
+
+def _mesh_stage1(mesh, steps: int = 2):
+    """``steps`` stage-1 bf16 steps at ``train_path``'s width (B = 16,
+    80 x 80, dim 64) from one seed; with ``mesh`` through the data-parallel
+    step.  Returns (losses and norms, parameters, seconds per step, the
+    UNet's gradients)."""
+    from diffbinaural_tpu_torch.train import make_stage1_train_step
+
+    unet = build_unet(torch.bfloat16, seed=0)
+    init_fn, step_fn = make_stage1_train_step(unet, mesh=mesh)
+    batch = synthetic_batch(TRAIN_BATCH, seed=7)
+    state = init_fn()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    metrics, seconds = {}, []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        metrics[f"loss_{i}"] = m["loss"].item()
+        metrics[f"grad_norm_{i}"] = m["grad_norm"].item()
+    params = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    return metrics, params, seconds, [p.grad for p in unet.parameters()]
+
+
+def _mesh_stage2(modules, mesh):
+    """One stage-2 step at ``stage2_path``'s configuration (``modules``:
+    ``build_gan``'s, bf16 generator; B = 16 x 16384); with ``mesh`` through
+    the all-reduced step and the generator through
+    ``shard_vocoder_params``.  Returns (metrics, parameters, seconds, the
+    generator's gradients)."""
+    from diffbinaural_tpu_torch import parallel
+
+    h, gen, mpd, mrd = modules
+    if mesh is not None:
+        parallel.shard_vocoder_params(gen, mesh)
+    init_fn, step_fn = make_gan_step(h, gen, mpd, mrd, mesh=mesh)
+    batch = gan_batch(h, GAN_BATCH, seed=23)
+    state = init_fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    params = {f"{k}.{n}": p.detach().clone()
+              for k, m in (("generator", gen), ("mpd", mpd), ("mrd", mrd))
+              for n, p in m.named_parameters()}
+    return ({k: float(v) for k, v in metrics.items()}, params, seconds,
+            [p.grad for p in gen.parameters()])
+
+
+def _mesh_pipeline(mesh) -> dict:
+    """``BinauralPipeline(mesh=)`` on the 10 s clip: one group of 21 slots.
+    In bf16 with DDIM-25, bit for bit the unmeshed pipeline at
+    ``unet_batch`` 21 (the same batch, so the same kernels and rounding),
+    timed beside it and beside the three groups of 8, whose distance is
+    printed: a bf16 UNet call at batch 21 and the same windows at batch 8
+    differ by ~1.3 % rms (the plain versions too: cuDNN's and cuBLAS's
+    bf16 sums), and a random-weight DDIM-25 carries that to ~10 % of the
+    mel's rms.  Against the groups of 8 the clip is held in float32 (TF32
+    off) at ``main_path_check``'s two DDIM steps and tolerances: the
+    normalised stitched mel within 2e-3, the waveform within 1e-3 of its
+    scale.  The same per-window x_T everywhere."""
+    from diffbinaural_tpu_torch import ops
+    from diffbinaural_tpu_torch.infer.pipeline import BinauralPipeline
+    from diffbinaural_tpu_torch.infer.stage1 import normalize_mel
+
+    total_frames = int(CLIP_SECONDS * SR) // HOP  # 861
+    rng = np.random.default_rng(31)
+    mono = rng.standard_normal((1, 80, total_frames)).astype(np.float32) - 6.0
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {"frames": total_frames}
+    for dtype, steps in ((torch.bfloat16, DDIM_STEPS), (torch.float32, 2)):
+        unet, voc = build_models(dtype)
+        pipes = {
+            "groups_of_8": BinauralPipeline(unet, voc, total_frames,
+                                            unet_batch=UNET_BATCH,
+                                            sampling_timesteps=steps),
+            "one_group": BinauralPipeline(unet, voc, total_frames, mesh=mesh,
+                                          sampling_timesteps=steps)}
+        windows = pipes["groups_of_8"].n_windows
+        pipes["unet_batch_21"] = BinauralPipeline(
+            unet, voc, total_frames, unet_batch=windows,
+            sampling_timesteps=steps)
+        if (pipes["one_group"].n_batches, pipes["one_group"].n_slots) != (
+                1, windows):
+            fail(f"mesh_check pipeline: {pipes['one_group'].n_batches} "
+                 f"groups of {pipes['one_group'].n_slots} slots")
+        feats = rng.standard_normal((windows, 512)).astype(np.float32)
+        grouped = torch.randn((pipes["groups_of_8"].n_batches, UNET_BATCH, 2,
+                               80, WINDOW), generator=gen, device="cuda")
+        one = grouped.reshape((-1, 2, 80, WINDOW))[:windows][None]
+        noise = {"groups_of_8": grouped, "one_group": one,
+                 "unet_batch_21": one}
+        res = {}
+        for name, pipe in pipes.items():
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if dtype == torch.bfloat16:
+                wav = pipe(mono, feats, noise=noise[name])
+            else:
+                with torch.inference_mode():
+                    mel = pipe.stitched_mel(mono, feats, noise=noise[name])
+                    wav = voc(mel)[:, 0]
+            torch.cuda.synchronize()
+            res[name] = {"seconds": time.perf_counter() - t0,
+                         "launches": ops.launch_counts(), "wav": wav.float(),
+                         "mel": None if dtype == torch.bfloat16 else mel}
+            if not torch.isfinite(wav).all() or tuple(wav.shape) != (
+                    2, total_frames * HOP):
+                fail(f"mesh_check pipeline: output {tuple(wav.shape)}")
+        want, got = res["groups_of_8"], res["one_group"]
+        wav_scale = want["wav"].abs().max().item()
+        fields = {"ddim_steps": steps, "windows": windows,
+                  "launches_one_group": got["launches"],
+                  "wav_scale": wav_scale,
+                  "wav_max_err_vs_groups_of_8":
+                      (got["wav"] - want["wav"]).abs().max().item(),
+                  "wav_rms_err_of_rms_vs_groups_of_8":
+                      _rel_rms(got["wav"], want["wav"])}
+        if dtype == torch.bfloat16:
+            if not torch.equal(got["wav"], res["unet_batch_21"]["wav"]):
+                fail("mesh_check pipeline: one group through the mesh is not "
+                     "the unmeshed pipeline at unet_batch 21 bit for bit")
+            if got["launches"] != launches(
+                    flash_sdpa=DDIM_STEPS * ATTN_PER_STEP,
+                    fused_alias_free_snake=ACT_PER_PASS,
+                    fused_snake_conv=FUSED_PER_PASS):
+                fail(f"mesh_check pipeline: launch counts {got['launches']}")
+            fields.update({
+                "equals_unet_batch_21_bit_for_bit": True,
+                **{f"seconds_{k}": v["seconds"] for k, v in res.items()},
+                "sync": "synchronize + host clock, one clip each"})
+            out["bf16"] = fields
+        else:
+            mel_err = (normalize_mel(got["mel"]) - normalize_mel(
+                want["mel"])).abs().max().item()
+            if mel_err > 2e-3 or fields["wav_max_err_vs_groups_of_8"] > \
+                    1e-3 * wav_scale:
+                fail(f"mesh_check pipeline fp32: one group against groups of "
+                     f"8: mel {mel_err:.3e} (tol 2e-3), waveform "
+                     f"{fields['wav_max_err_vs_groups_of_8']:.3e} at scale "
+                     f"{wav_scale:.3e} (tol 1e-3 of it)")
+            fields.update(normalised_mel_max_err=mel_err, mel_tol=2e-3,
+                          wav_tol_of_scale=1e-3, tf32=False)
+            out["fp32"] = fields
+        del unet, voc, pipes, res, want, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_check(workdir: str, cli1: dict) -> dict:
+    """``parallel/`` on the one card.  NCCL refuses two ranks on one GPU, so
+    this phase opens a world-1 NCCL process group itself (a file store in
+    the work directory) and drives, through ``make_mesh()``'s mesh of that
+    group: two stage-1 bf16 steps at ``train_path``'s width and one stage-2
+    step at ``stage2_path``'s configuration, each bit for bit against the
+    same steps without a group (the all-reduce of one rank and the division
+    by 1 are exact; both under ``deterministic_algorithms()``); then
+    ``BinauralPipeline(mesh=)`` on the 10 s clip as one group of 21 slots
+    (``_mesh_pipeline``).  It leaves the group, then runs
+    ``python -m torch.distributed.run --nproc_per_node=1`` on
+    ``train_realbinaural`` with ``train_cli_stage1``'s flags and one loader
+    thread: its first step's loss and every file it writes must equal the
+    same CLI's run in this process (without a launcher) bit for bit and
+    byte for byte.  The all-reduce's time per step
+    over the UNet's and the generator's gradients is timed with CUDA
+    events; the steps and clips with the host clock beside their runs
+    without the group.  There is no fallback: a group that cannot be made
+    fails the run."""
+    import torch.distributed as dist
+
+    from diffbinaural_tpu_torch import ops, parallel
+    from diffbinaural_tpu_torch.parallel.mesh import all_reduce_mean_
+
+    out = {"phase": "mesh_check",
+           "nccl_version": ".".join(map(str, torch.cuda.nccl.version()))}
+    seconds, t_phase = {}, time.perf_counter()
+    torch.cuda.empty_cache()
+    # ---- the references, without a process group
+    gan = build_gan(torch.bfloat16, seed=21)
+    gan_start = [{n: v.clone() for n, v in m.state_dict().items()}
+                 for m in gan[1:]]
+    with deterministic_algorithms():
+        s1_want, s1_params_want, s1_s_want, _ = _mesh_stage1(None)
+        del _
+        torch.cuda.empty_cache()
+        s2_want, s2_params_want, s2_s_want, _ = _mesh_stage2(gan, None)
+        del _
+    for m, start in zip(gan[1:], gan_start):
+        m.load_state_dict(start)
+        m.zero_grad(set_to_none=True)
+    del gan_start
+    torch.cuda.empty_cache()
+    seconds["references"] = time.perf_counter() - t_phase
+
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(workdir, 'nccl_store')}",
+        world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    out["group_init_s"] = time.perf_counter() - t0
+    try:
+        mesh = parallel.make_mesh()
+        if tuple(mesh.shape) != (1, 1) or dist.get_backend() != "nccl":
+            fail(f"mesh_check: mesh {tuple(mesh.shape)} over "
+                 f"{dist.get_backend()}")
+        # ---- 1. stage-1 steps through the group
+        with deterministic_algorithms():
+            ops.reset_launch_counts()
+            s1_got, s1_params, s1_s, grads = _mesh_stage1(mesh)
+            s1_counts = ops.launch_counts()
+        _same_floats("mesh_check stage1 metrics", s1_got, s1_want)
+        n1 = _same_modules("mesh_check stage1 parameters", s1_params,
+                           s1_params_want)
+        if s1_counts != launches(flash_sdpa_with_lse=2 * ATTN_PER_STEP,
+                                 flash_sdpa_backward=2 * ATTN_PER_STEP):
+            fail(f"mesh_check stage1: launch counts {s1_counts}")
+        unet_ar_ms = time_ms(lambda: all_reduce_mean_(grads, mesh))
+        unet_bytes = sum(g.numel() * g.element_size() for g in grads)
+        del grads, s1_params, s1_params_want
+        torch.cuda.empty_cache()
+        # ---- 2. one stage-2 step through the group
+        with deterministic_algorithms():
+            ops.reset_launch_counts()
+            s2_got, s2_params, s2_s, grads = _mesh_stage2(gan, mesh)
+            s2_counts = ops.launch_counts()
+        _same_floats("mesh_check stage2 metrics", s2_got, s2_want)
+        n2 = _same_modules("mesh_check stage2 parameters", s2_params,
+                           s2_params_want)
+        if s2_counts != gan_launches(1, bf16=True):
+            fail(f"mesh_check stage2: launch counts {s2_counts}")
+        gen_ar_ms = time_ms(lambda: all_reduce_mean_(grads, mesh))
+        gen_bytes = sum(g.numel() * g.element_size() for g in grads)
+        del grads, s2_params, s2_params_want, gan
+        torch.cuda.empty_cache()
+        seconds["steps_through_the_group"] = (time.perf_counter() - t_phase
+                                              - seconds["references"])
+        # ---- 3. the 10 s clip in one group of 21 slots
+        t0 = time.perf_counter()
+        pipe_out = _mesh_pipeline(mesh)
+        seconds["pipeline"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+
+    # ---- 4. the train CLI under the launcher against the same CLI run in
+    # this process, on train_cli_stage1's world and flags with one loader
+    # thread (several threads draw from the dataset's one random.Random in
+    # the order they are scheduled, so their batches differ between runs)
+    from diffbinaural_tpu_torch.cli import common, train_realbinaural
+
+    def flags(ck):
+        argv = list(cli1["argv"]) + ["--workers", "1", "--num_epoch", "1"]
+        argv[argv.index("--ckpt") + 1] = ck
+        return argv
+
+    ck_want = os.path.join(workdir, "ckpt_unlaunched")
+    with deterministic_algorithms(), recorded_first_step(common) as rec:
+        t0 = time.perf_counter()
+        _cli_quietly(train_realbinaural.main, flags(ck_want))
+        seconds["unlaunched_cli"] = time.perf_counter() - t0
+    first_loss = rec["loss"]
+    del rec
+    torch.cuda.empty_cache()
+    ck = os.path.join(workdir, "ckpt_launched")
+    script = os.path.join(workdir, "launched_cli.py")
+    with open(script, "w") as f:
+        f.write(LAUNCHED_CLI)
+    record_path = os.path.join(workdir, "launched_cli.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", script, record_path] + flags(ck)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        fail("mesh_check: the launched train CLI did not finish in 300 s")
+    seconds["launched_cli"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"mesh_check: the launched train CLI exited "
+             f"{proc.returncode}: {log[-3000:]}")
+    with open(record_path) as f:
+        record = json.load(f)
+    if (record.get("backend"), record.get("world_size")) != ("nccl", 1) \
+            or not record.get("group_left"):
+        fail(f"mesh_check: the launched CLI ran {record}")
+    if not record["losses"] or repr(record["losses"][0]) != repr(first_loss):
+        fail(f"mesh_check: the launched CLI's first loss "
+             f"{record['losses'][:1]} against {first_loss!r}")
+    files = sorted(os.listdir(os.path.join(ck_want, "chip")))
+    if sorted(os.listdir(os.path.join(ck, "chip"))) != files:
+        fail(f"mesh_check: the launched CLI wrote "
+             f"{sorted(os.listdir(os.path.join(ck, 'chip')))}, not {files}")
+    for name in files:
+        with open(os.path.join(ck, "chip", name), "rb") as f:
+            got_bytes = f.read()
+        with open(os.path.join(ck_want, "chip", name), "rb") as f:
+            if got_bytes != f.read():
+                fail(f"mesh_check: the launched CLI's {name} differs from "
+                     "the same CLI's in this process")
+
+    out.update(
+        world_size=1, backend="nccl", mesh=[1, 1],
+        deterministic_algorithms=True,
+        stage1={"dtype": "bf16", "batch": TRAIN_BATCH, "steps": 2,
+                "metrics": s1_got, "bit_for_bit_parameters": n1,
+                "seconds_per_step_group": s1_s,
+                "seconds_per_step_no_group": s1_s_want,
+                "launches": s1_counts},
+        stage2={"generator_dtype": "bf16", "batch": GAN_BATCH,
+                "segment": GAN_SEGMENT, "metrics": s2_got,
+                "bit_for_bit_parameters": n2, "seconds_group": s2_s,
+                "seconds_no_group": s2_s_want, "launches": s2_counts},
+        allreduce_ms_per_step={
+            "unet_grads": unet_ar_ms, "unet_grad_bytes": unet_bytes,
+            "generator_grads": gen_ar_ms, "generator_grad_bytes": gen_bytes,
+            "timing": "CUDA events over 10 back-to-back calls of "
+                      "all_reduce_mean_ (concatenate, NCCL all-reduce, "
+                      "divide, copy back) on the step's gradients"},
+        pipeline=pipe_out,
+        seconds={**seconds, "phase": time.perf_counter() - t_phase},
+        launched_cli={"command": "python -m torch.distributed.run "
+                      "--standalone --nproc_per_node=1 -m "
+                      "diffbinaural_tpu_torch.cli.train_realbinaural "
+                      "(run as __main__ by a wrapper that records the "
+                      "losses under deterministic algorithms)",
+                      "flags_added": ["--workers", "1"],
+                      "first_step_loss": record["losses"][0],
+                      "losses": record["losses"],
+                      "device": record["device"],
+                      "files_byte_equal": files})
     emit(out)
     return out
 
@@ -3793,6 +4191,7 @@ def main() -> None:
         phase_data_check(os.path.join(workdir, "world1"), workdir,
                          native_prebuilt)
         cli1 = phase_train_cli_stage1(os.path.join(workdir, "world1"), workdir)
+        phase_mesh_check(workdir, cli1)
         phase_remat_check()
         cli2 = phase_train_cli_stage2(world2, workdir)
         k1_fp32 = check_k1_fp32_test_cli(

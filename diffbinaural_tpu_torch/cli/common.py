@@ -4,16 +4,25 @@
 JAX functions take a parameter tree, these take the port's modules, which
 hold their weights.
 
-``Stage1Trainer`` is the JAX trainer's loop on one device: AdamW with two
-LR groups, x0.95 at each ``--lr_steps`` epoch passed and x``decay_factor``
-every ``learning_rate_decrease_itr`` epochs, a DDIM-25 mel-L2 evaluation
-every ``eval_epoch`` epochs, latest / best / numbered / history
-checkpoints, and resume by prefix scan.  Its checkpoints are the JAX
+``Stage1Trainer`` is the JAX trainer's loop, data-parallel over
+``parallel.make_mesh()`` as the JAX trainer is over its mesh (one process
+per card under ``python -m torch.distributed.run``, one device without a
+launcher): AdamW with two LR groups, x0.95 at each ``--lr_steps`` epoch
+passed and x``decay_factor`` every ``learning_rate_decrease_itr`` epochs,
+a DDIM-25 mel-L2 evaluation every ``eval_epoch`` epochs, latest / best /
+numbered / history checkpoints, and resume by prefix scan.  Its checkpoints are the JAX
 trainer's files: flax msgpack under the flax names (``convert.py``), so
 either trainer resumes from the other's.  Resume restores the parameters
 only; the optimiser starts afresh, as the JAX trainer's does.  The step's
 draws (t, noise, CFG drop) come from a ``torch.Generator`` on the device
 seeded by ``--seed``.
+
+Every rank runs the same seeded loader over the global batch and keeps its
+block of rows (``parallel.shard_batch``), the JAX trainer's data semantics;
+the step's loss and gradient norm are global, so the stabiliser and the LR
+schedule decide alike on every rank.  Validation runs whole on every rank
+(the same numbers at any world size); rank 0 alone writes checkpoints,
+summaries and figures.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from ..diffusion import GaussianDiffusion
 from ..infer.stage1 import Stage1Sampler, generate_clip
 from ..models import build_unet
 from ..models.visual import ENCODER_REGISTRY, apply_visual, build_visual
+from ..parallel.mesh import (gathered_state_dict, is_main_process, make_mesh,
+                             shard_batch)
 from ..train import TrainingStabilizer, make_stage1_train_step
 from ..utils import AverageMeter, SummaryLogger
 
@@ -77,12 +88,13 @@ def visual_apply_fn(net, arch_frame: str):
 
 def module_tree(module: torch.nn.Module) -> Dict:
     """The flax variables ``{"params": tree}`` of one of the port's modules,
-    as the JAX trainers hold and save them."""
-    return {"params": tree_to_flax(module.state_dict())}
+    as the JAX trainers hold and save them (a module sharded over a mesh's
+    ``model`` axis is gathered whole: every rank calls this)."""
+    return {"params": tree_to_flax(gathered_state_dict(module))}
 
 
 class Stage1Trainer:
-    """The stage-1 epoch loop on one device (the card unless
+    """The stage-1 epoch loop over the job's mesh (the card unless
     ``device="cpu"``).  ``args`` is ``cli.arguments.ArgParser``'s namespace;
     ``args.unet_dim`` and ``args.clip_config``, where set, shrink the models
     (tests)."""
@@ -92,6 +104,8 @@ class Stage1Trainer:
         self.args = args
         self.mel_key = mel_key
         self.device = resolve_device(device)
+        self.mesh = make_mesh(devices=self.device)
+        self.is_main = is_main_process()
         builder = ModelBuilder()
         self.net_frame = builder.build_visual(
             pool_type=args.img_pool, arch_frame=args.arch_frame,
@@ -109,7 +123,8 @@ class Stage1Trainer:
         self.dataset_train = dataset_train
         self.dataset_val = dataset_val
         self.exp_dir = os.path.join(args.ckpt, args.id)
-        self.writer = SummaryLogger(os.path.join(self.exp_dir, "runs"))
+        self.writer = SummaryLogger(
+            os.path.join(self.exp_dir, "runs") if self.is_main else None)
         self.history: Dict = {"train_loss": [], "val_mel_l2": [], "epoch": 0}
         self.best_mel_l2 = float("inf")
         # host seconds per step: waiting on the loader, and the whole step
@@ -118,7 +133,8 @@ class Stage1Trainer:
         self._init_fn, self.step_fn = make_stage1_train_step(
             self.net_unet, self.net_frame, self.diffusion,
             lr_unet=args.lr_unet, lr_frame=args.lr_frame, b1=args.beta1,
-            weight_decay=args.weight_decay, device=self.device)
+            weight_decay=args.weight_decay, device=self.device,
+            mesh=self.mesh)
         self.sampler = Stage1Sampler(self.net_unet, self.diffusion,
                                      sampling_timesteps=25, device=self.device)
         self.state = None
@@ -167,14 +183,16 @@ class Stage1Trainer:
         tree = ckpt.load_checkpoint(path, target=module_tree(self.net_unet))
         self.net_unet.load_state_dict(unet_params_from_flax(tree), strict=True)
 
-    def _prep_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """The loader's numpy batch -> the step's keys, copied to the device
-        once."""
+    def _prep_batch(self, batch, shard: bool = True) -> Dict[str, torch.Tensor]:
+        """The loader's numpy batch -> the step's keys (with ``shard``, this
+        rank's block of rows), copied to the device once."""
         pos = (batch["pos_data"] if self.args.arch_frame == "clip_pos"
                else batch["2d_pos_data"])
         out = {"mono_mel": batch[self.mel_key],
                "binaural_mel": batch["binaural_mel"],
                "frames": batch["frames"], "pos": pos, "mask": batch["mask"]}
+        if shard:
+            out = shard_batch(out, self.mesh)
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in out.items()}
 
@@ -218,10 +236,11 @@ class Stage1Trainer:
 
     def evaluate(self, loader, epoch: int) -> float:
         """DDIM-25 over the validation batches (x_T from seed 13, as the
-        sampler draws it); per-sample mel L2 against the target."""
+        sampler draws it); per-sample mel L2 against the target.  Every rank
+        evaluates every batch whole."""
         errs = []
         for bi, batch in enumerate(loader):
-            b = self._prep_batch(batch)
+            b = self._prep_batch(batch, shard=False)
             with torch.inference_mode():
                 feat = self.visual_apply(b["frames"], b["pos"], b["mask"])
                 pred = self.sampler.sample(b["mono_mel"], feat)
@@ -241,13 +260,17 @@ class Stage1Trainer:
     # ------------------------------------------------------------------
 
     def save_checkpoints(self, epoch: int, mel_l2: float):
-        """latest / best + numbered + history."""
+        """latest / best + numbered + history, written by rank 0."""
         d = self.exp_dir
+        best = mel_l2 < self.best_mel_l2
+        if best:
+            self.best_mel_l2 = mel_l2
+        if not self.is_main:
+            return
         frame, unet = module_tree(self.net_frame), module_tree(self.net_unet)
         ckpt.save_checkpoint(os.path.join(d, "frame_latest.pth"), frame)
         ckpt.save_checkpoint(os.path.join(d, "unet_latest.pth"), unet)
-        if mel_l2 < self.best_mel_l2:
-            self.best_mel_l2 = mel_l2
+        if best:
             ckpt.save_checkpoint(os.path.join(d, "frame_best.pth"), frame)
             ckpt.save_checkpoint(os.path.join(d, "unet_best.pth"), unet)
         if epoch % max(self.args.eval_epoch * 10, 1) == 0:

@@ -16,8 +16,15 @@ Checkpoints are the JAX trainer's files: ``g_%08d`` holds
 ``{"generator": variables}``, ``do_%08d`` ``{"mpd", "mrd", "steps",
 "epoch"}``, flax msgpack under the flax names (``convert.py``).  Resume
 restores the parameters and the step counter; the optimisers start afresh,
-as the JAX trainer's do.  Runs on one device, the card unless
-``device="cpu"``.
+as the JAX trainer's do.
+
+Data-parallel over ``parallel.make_mesh()``, as the JAX trainer is (one
+process per card under ``python -m torch.distributed.run``, the card unless
+``device="cpu"``): every rank runs the same loader and keeps its block of
+each batch; the generator goes through ``parallel.shard_vocoder_params``
+(a plain replicate on the default mesh, whose ``model`` size is 1) and is
+gathered whole for a checkpoint.  Validation runs on every rank; rank 0
+alone writes checkpoints, summaries and figures.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from ..core.device import resolve_device
 from ..core.precision import full_precision
 from ..losses import MultiScaleMelSpectrogramLoss
 from ..models import build_discriminators, build_vocoder
+from ..parallel.mesh import (is_main_process, load_gathered_state_dict,
+                             make_mesh, shard_batch, shard_vocoder_params)
 from ..signal.stft import mel_spectrogram
 from ..train import make_stage2_train_step
 from ..utils import SummaryLogger
@@ -51,12 +60,15 @@ class GanTrainer:
         self.a = a
         self.h = h
         self.device = resolve_device(device)
+        self.mesh = make_mesh(devices=self.device)
+        self.is_main = is_main_process()
         self.cfg = VocoderConfig.from_attrdict(h)
         self.compute_dtype = compute_dtype
         self.disc_dtype = (torch.bfloat16 if h.get("discriminator_bf16", False)
                            else torch.float32)
         self.msl = MultiScaleMelSpectrogramLoss(h["sampling_rate"])
-        self.writer = SummaryLogger(os.path.join(a.checkpoint_path, "logs"))
+        self.writer = SummaryLogger(
+            os.path.join(a.checkpoint_path, "logs") if self.is_main else None)
         # remat costs step time; the JAX trainer turns it on above one
         # chip's activation footprint (B = 16 x 16384 fits, B = 32 needs it)
         self.remat = h["batch_size"] * h["segment_size"] > 16 * 16384
@@ -82,8 +94,9 @@ class GanTrainer:
         config's seed, and a fresh optimiser state.  (``seg_frames`` gives
         the JAX trainer its init shapes; the modules need none.)"""
         h, seed = self.h, self.h["seed"]
-        self.gen = build_vocoder(self.cfg, dtype=self.compute_dtype,
-                                 seed=seed, device=self.device)
+        self.gen = shard_vocoder_params(
+            build_vocoder(self.cfg, dtype=self.compute_dtype, seed=seed,
+                          device=self.device), self.mesh)
         self.mpd, self.mrd = build_discriminators(
             h, dtype=self.disc_dtype, seed=seed + 1, device=self.device)
         init_fn, self.step_fn = make_stage2_train_step(
@@ -95,13 +108,13 @@ class GanTrainer:
             freeze_step=getattr(self.a, "freeze_step", 0),
             use_multiscale_melloss=h.get("use_multiscale_melloss", False),
             silence_threshold_db=h.get("silence_threshold_db", -50.0),
-            remat=self.remat, device=self.device)
+            remat=self.remat, device=self.device, mesh=self.mesh)
         self.state = init_fn()
 
     def _load_generator(self, path: str) -> None:
         g = ckpt.load_checkpoint(path, {"generator": module_tree(self.gen)})
-        self.gen.load_state_dict(bigvgan_params_from_flax(g["generator"]),
-                                 strict=True)
+        load_gathered_state_dict(self.gen,
+                                 bigvgan_params_from_flax(g["generator"]))
 
     def try_resume(self):
         """Three tiers: the stage-2 directory -> the stage-1 directory
@@ -132,9 +145,14 @@ class GanTrainer:
                 print(f"Warm-started generator from stage-1 dir {cp_g}")
 
     def save(self, epoch: int):
+        """``g_`` / ``do_`` at this step, written by rank 0 (every rank
+        gathers a sharded generator)."""
         d = self.a.checkpoint_path
+        generator = module_tree(self.gen)
+        if not self.is_main:
+            return
         ckpt.save_checkpoint(os.path.join(d, f"g_{self.steps:08d}"),
-                             {"generator": module_tree(self.gen)})
+                             {"generator": generator})
         ckpt.save_checkpoint(
             os.path.join(d, f"do_{self.steps:08d}"),
             {"mpd": module_tree(self.mpd), "mrd": module_tree(self.mrd),
@@ -183,8 +201,10 @@ class GanTrainer:
             tic = time.time()
             for batch in loader_train:
                 wait = time.time() - tic
-                b = {k: torch.from_numpy(batch[k]).to(self.device)
-                     for k in ("mel", "audio", "mel_loss")}
+                b = shard_batch({k: batch[k] for k in
+                                 ("mel", "audio", "mel_loss")}, self.mesh)
+                b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                    self.device) for k, v in b.items()}
                 self.state, metrics = self.step_fn(self.state, b)
                 self.steps = self.state.step
 

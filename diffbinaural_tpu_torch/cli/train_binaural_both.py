@@ -7,6 +7,9 @@ normalisation disabled, validation on predicted mels only;
 ``cli.gan_common.GanTrainer``.
 
 Run: python -m diffbinaural_tpu_torch.cli.train_binaural_both --config ...
+Data-parallel over W cards: python -m torch.distributed.run
+--nproc_per_node=W -m diffbinaural_tpu_torch.cli.train_binaural_both ... (the same
+flags; the batch is the global one, each rank on cuda:LOCAL_RANK).
 
 ``main(argv, device="cpu")`` runs it on the CPU (the plain versions of the
 kernels); by default it runs on the card and raises without one.  Returns
@@ -18,6 +21,7 @@ from __future__ import annotations
 import argparse
 
 from ..core.device import resolve_device
+from ..parallel.mesh import shutdown
 
 
 def build_parser():
@@ -103,4 +107,7 @@ def main(argv=None, *, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

@@ -5,6 +5,9 @@ True).  ``BinauralMelSpectrogramDataset`` over ``--mel_{left,right}_*_dir``
 and ``--audio_dir``; ``cli.gan_common.GanTrainer``.
 
 Run: python -m diffbinaural_tpu_torch.cli.train_binaural_mel --config ...
+Data-parallel over W cards: python -m torch.distributed.run
+--nproc_per_node=W -m diffbinaural_tpu_torch.cli.train_binaural_mel ... (the same
+flags; the batch is the global one, each rank on cuda:LOCAL_RANK).
 
 ``main(argv, device="cpu")`` runs it on the CPU (the plain versions of the
 kernels); by default it runs on the card and raises without one.  Returns
@@ -16,6 +19,7 @@ from __future__ import annotations
 import argparse
 
 from ..core.device import resolve_device
+from ..parallel.mesh import shutdown
 
 
 def build_parser():
@@ -81,4 +85,7 @@ def main(argv=None, *, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

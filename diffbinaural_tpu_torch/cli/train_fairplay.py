@@ -4,6 +4,9 @@ batch key, stereo wavs under ``{--data_root}/binaural_audios/`` (the mono
 mix is their mean), no detection file (all sources masked).
 
 Run: python -m diffbinaural_tpu_torch.cli.train_fairplay --mode train ...
+Data-parallel over W cards: python -m torch.distributed.run
+--nproc_per_node=W -m diffbinaural_tpu_torch.cli.train_fairplay ... (the same
+flags; the batch is the global one, each rank on cuda:LOCAL_RANK).
 
 ``main(argv, device="cpu")`` runs it on the CPU (the plain versions of the
 kernels); by default it runs on the card and raises without one.  Returns
@@ -13,6 +16,7 @@ the trainer.
 from __future__ import annotations
 
 from ..core.device import resolve_device
+from ..parallel.mesh import shutdown
 
 
 def main(argv=None, *, device=None):
@@ -50,8 +54,11 @@ def main(argv=None, *, device=None):
 
     trainer = Stage1Trainer(args, dataset_train, dataset_val,
                             mel_key="mix_mel", device=device)
-    first = next(iter(loader_train))
-    trainer.init_params(first)
+    # no batch is drawn ahead for the shapes (the JAX CLI's first batch):
+    # its iterator's workers would go on drawing from the dataset's shared
+    # RNG until collected, so the first epoch's crops would depend on
+    # thread timing
+    trainer.init_params()
     trainer.try_resume()
     if args.mode == "train":
         trainer.fit(loader_train, loader_val)
@@ -61,4 +68,7 @@ def main(argv=None, *, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

@@ -7,6 +7,9 @@ frames under ``processed/frames/{video_id}/`` and the detections in
 ``action_detection_results/detection_results.csv``.
 
 Run: python -m diffbinaural_tpu_torch.cli.train_realbinaural --mode train ...
+Data-parallel over W cards: python -m torch.distributed.run
+--nproc_per_node=W -m diffbinaural_tpu_torch.cli.train_realbinaural ... (the same
+flags; the batch is the global one, each rank on cuda:LOCAL_RANK).
 
 ``main(argv, device="cpu")`` runs it on the CPU (the plain versions of the
 kernels); by default it runs on the card and raises without one.  Returns
@@ -18,6 +21,7 @@ from __future__ import annotations
 import os
 
 from ..core.device import resolve_device
+from ..parallel.mesh import shutdown
 
 
 def main(argv=None, *, device=None):
@@ -59,8 +63,11 @@ def main(argv=None, *, device=None):
 
     trainer = Stage1Trainer(args, dataset_train, dataset_val,
                             mel_key="mono_mel", device=device)
-    first = next(iter(loader_train))
-    trainer.init_params(first)
+    # no batch is drawn ahead for the shapes (the JAX CLI's first batch):
+    # its iterator's workers would go on drawing from the dataset's shared
+    # RNG until collected, so the first epoch's crops would depend on
+    # thread timing
+    trainer.init_params()
     trainer.try_resume()
     if args.mode == "train":
         trainer.fit(loader_train, loader_val)
@@ -70,4 +77,7 @@ def main(argv=None, *, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

@@ -8,6 +8,13 @@ through the UNet in groups of ``unet_batch``.
 
 The clip geometry (total frames, window/stride/crop, grouping) is fixed per
 pipeline instance.
+
+With a ``mesh`` (``parallel.make_mesh``) the whole window batch is ONE group
+split over the mesh's ``data`` axis: each rank samples its block of slots,
+the predictions are all-gathered and stitched on every rank, and the vocoder
+runs on the stitched mels with its parameters sharded over ``model`` or
+replicated, as ``parallel.shard_vocoder_params`` left them.  Every rank
+returns the same waveform.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 from ..core.device import resolve_device
 from ..core.precision import full_precision
 from ..diffusion import GaussianDiffusion
+from ..parallel.mesh import DATA, all_gather_rows, axis_size, data_rows
 from .stage1 import (
     MEL_MIN,
     crop_spans,
@@ -61,12 +69,16 @@ class BinauralPipeline:
         time_grid: Optional[str] = None,
         diffusion: Optional[GaussianDiffusion] = None,
         device=None,
+        mesh=None,
     ):
         """``sampler``: ``"ddim"`` (the reference's) or ``"dpm++"``
         (DPM-Solver++(2M)).  ``time_grid`` picks the discretisation
         (``"uniform"``, ``"powerP"``, ``"lambda"``, ``"karrasR"``, see
         ``GaussianDiffusion._dpm_time_pairs``); None keeps each sampler's
-        default: uniform for DDIM, power2.5 for DPM++."""
+        default: uniform for DDIM, power2.5 for DPM++.  With ``mesh`` the
+        windows run as one group of ``n_slots`` = ``n_windows`` rounded up
+        to a multiple of the ``data`` size, each rank denoising its block;
+        ``unet_batch`` is ignored."""
         if sampler not in ("ddim", "dpm++"):
             raise ValueError(f"unknown sampler {sampler!r}")
         self.sampler = sampler
@@ -88,9 +100,16 @@ class BinauralPipeline:
 
         self.starts = window_starts(total_frames, window, stride)
         self.n_windows = len(self.starts)
-        self.n_batches = -(-self.n_windows // unet_batch)
-        self.n_slots = self.n_batches * unet_batch
-        self.unet_batch = unet_batch
+        self.mesh = mesh
+        if mesh is not None:
+            n_data = axis_size(mesh, DATA)
+            self.n_batches = 1
+            self.n_slots = -(-self.n_windows // n_data) * n_data
+            self.unet_batch = self.n_slots
+        else:
+            self.n_batches = -(-self.n_windows // unet_batch)
+            self.n_slots = self.n_batches * unet_batch
+            self.unet_batch = unet_batch
 
         # per-window kept span — the same rule as the host path
         self._spans = crop_spans(self.starts, total_frames, window,
@@ -130,7 +149,9 @@ class BinauralPipeline:
         """The stage-1 half: (2, M, T) stitched binaural ln-mels.
         ``noise``: optional (n_batches, unet_batch, 2, M, window) initial
         x_T of every group; otherwise each group draws from ``generator``
-        (seed 13 when absent)."""
+        (seed 13 when absent).  Under a mesh the one group's x_T is drawn
+        at its global shape (1, n_slots, 2, M, window) on every rank, which
+        keeps its rows."""
         mono = _float32(mono_mel_full)
         if mono.shape[2] != self.total_frames:
             # a mismatched clip would stitch predictions at wrong positions
@@ -166,6 +187,15 @@ class BinauralPipeline:
         sample = (self.diffusion.dpm_sample if self.sampler == "dpm++"
                   else self.diffusion.ddim_sample)
         grid = {} if self.time_grid is None else {"time_grid": self.time_grid}
+        if self.mesh is not None:
+            rows = data_rows(self.n_slots, self.mesh)
+            if noise is None:
+                noise = torch.randn((1, self.n_slots, 2) + wins.shape[2:],
+                                    generator=generator, device=self.device)
+            x_T = torch.as_tensor(noise[0])[rows].to(self.device)
+            pred = sample(self.unet, (wins[rows], feats[rows]), noise=x_T,
+                          **grid)
+            return self._stitch(all_gather_rows(pred, self.mesh))
         preds = [
             sample(
                 self.unet, (wins_g[i], feat_g[i]), generator=generator,

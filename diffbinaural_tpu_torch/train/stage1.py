@@ -20,6 +20,15 @@ the norm itself.
 The JAX train step applies the UNet and the frame encoder with dropout off,
 and so does this one, whatever the modules' ``train()``/``eval()`` flags
 say; it leaves every flag as it found it.
+
+Made with a ``mesh`` (``parallel.make_mesh``), the step is data-parallel
+over its ``data`` axis, as the JAX step is over its mesh: each rank is given
+its block of the global batch (``parallel.shard_batch``), draws t, noise and
+the CFG mask at the GLOBAL batch's shapes from a generator seeded alike on
+every rank and keeps its rows (so the draws do not depend on the number of
+ranks), and averages the gradients and the loss over ``data`` with one flat
+all-reduce before the clip.  The loss is a batch mean, so over equal blocks
+the mean of the ranks' gradients is the gradient of the global loss.
 """
 
 from __future__ import annotations
@@ -36,6 +45,10 @@ from ..core.precision import full_precision
 from ..diffusion import GaussianDiffusion
 from ..infer.stage1 import normalize_mel
 from ..models.visual import apply_visual
+from ..parallel.mesh import DATA, all_reduce_mean_, axis_size, data_rows
+
+
+_CFG_DROP = 0.1  # p_losses' CFG drop probability (its ``threshold``)
 
 
 @dataclass
@@ -62,13 +75,16 @@ def _dropout_off(*modules: Optional[nn.Module]):
             m.training = flag
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place: gradients are left alone
     when their global norm is below ``max_norm`` and become
-    ``g / norm * max_norm`` otherwise.  Returns the pre-clip norm.  No host
-    synchronisation: the choice is a ``torch.where`` on the device."""
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(grads)).float())
+    ``g / norm * max_norm`` otherwise.  Returns the pre-clip norm, computed
+    here unless given.  No host synchronisation: the choice is a
+    ``torch.where`` on the device."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)).float())
     below = norm < max_norm
     divisor = torch.where(below, torch.ones_like(norm), norm)
     factor = torch.where(below, torch.ones_like(norm),
@@ -79,10 +95,13 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 
 
 def apply_update_(optimizer: torch.optim.Optimizer, lr_scale: float,
-                  clip_norm: float, clip_value: Optional[float]) -> torch.Tensor:
-    """One optimiser update from the gradients that lie in ``.grad``: clip by
-    global norm, optional clip by value, AdamW at ``base_lr * lr_scale`` per
-    group.  Returns the pre-clip global norm."""
+                  clip_norm: float, clip_value: Optional[float],
+                  mesh=None, averaged=()) -> torch.Tensor:
+    """One optimiser update from the gradients that lie in ``.grad``: with a
+    ``mesh``, their mean over its ``data`` axis (``averaged``, e.g. the
+    loss, rides along in the same all-reduce); then clip by global norm,
+    optional clip by value, AdamW at ``base_lr * lr_scale`` per group.
+    Returns the pre-clip global norm."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
     for p in params:
         # optax updates every leaf (weight decay included); AdamW would skip
@@ -90,6 +109,8 @@ def apply_update_(optimizer: torch.optim.Optimizer, lr_scale: float,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
+    if mesh is not None:
+        all_reduce_mean_(grads + list(averaged), mesh)
     grad_norm = clip_by_global_norm_(grads, clip_norm)
     if clip_value is not None:
         torch._foreach_clamp_min_(grads, -clip_value)
@@ -113,6 +134,7 @@ def make_stage1_train_step(
     clip_value: Optional[float] = None,
     cfg: bool = True,
     device=None,
+    mesh=None,
 ) -> Tuple[Callable, Callable]:
     """Returns ``(init_fn, step_fn)``.
 
@@ -131,6 +153,10 @@ def make_stage1_train_step(
     sources), mask (B, T, N) True = invalid.  ``t``, ``noise`` and
     ``drop`` are the diffusion step, the noise and the CFG drop mask; what
     is absent is drawn from ``generator``.
+
+    With ``mesh``, ``batch`` is this rank's block of a global batch of
+    ``B * data size`` rows, the draws are made at the global shapes, and
+    the returned ``loss`` and ``grad_norm`` are the global values.
     """
     device = resolve_device(device)
     diffusion = diffusion or GaussianDiffusion(
@@ -171,9 +197,28 @@ def make_stage1_train_step(
                                 on_device(batch["mask"]))
         t, noise, drop = (None if a is None else on_device(a)
                           for a in (t, noise, drop))
+        if mesh is not None:
+            t, noise, drop = global_draws(target, generator, t, noise, drop)
         return diffusion.p_losses(
             state.unet, target, (mono, feat), t=t, noise=noise, drop=drop,
             cfg=cfg, generator=generator)
+
+    def global_draws(target, generator, t, noise, drop):
+        """What ``p_losses`` would draw, in its order, at the global batch's
+        shapes; this rank keeps its rows."""
+        b = target.shape[0] * axis_size(mesh, DATA)
+        rows, dev = data_rows(b, mesh), target.device
+        if t is None:
+            t = torch.randint(0, diffusion.num_timesteps, (b,),
+                              generator=generator, device=dev)[rows]
+        if noise is None:
+            noise = torch.randn((b,) + tuple(target.shape[1:]),
+                                generator=generator, dtype=target.dtype,
+                                device=dev)[rows]
+        if cfg and drop is None:
+            drop = (torch.rand((b,), generator=generator, device=dev)
+                    < _CFG_DROP)[rows]
+        return t, noise, drop
 
     def step_fn(state: Stage1TrainState, batch: Dict,
                 generator: Optional[torch.Generator] = None, t=None,
@@ -185,9 +230,10 @@ def make_stage1_train_step(
             loss = loss_fn(state, batch, generator, t, noise, drop)
             loss.backward()
 
+        loss = loss.detach()
         grad_norm = apply_update_(optimizer, state.lr_scale, clip_norm,
-                                  clip_value)
+                                  clip_value, mesh, averaged=(loss,))
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return init_fn, step_fn

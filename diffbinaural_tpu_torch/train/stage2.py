@@ -27,6 +27,17 @@ x -lr.  ``torch.optim.AdamW`` computes the last three; the clip is
 optax does.  Every parameter is updated, with a zero gradient where the
 loss did not reach it, as optax does.
 
+Made with a ``mesh`` (``parallel.make_mesh``), the step is data-parallel over
+its ``data`` axis: each rank is given its block of the global batch, and the
+D step's and the G step's gradients are averaged over ``data`` by one flat
+all-reduce each before the clip (every loss of both steps is a mean — LS-GAN,
+feature matching, the mel L1s — so over equal blocks that is the gradient
+of the global loss); the metrics are the global means.  A generator sharded
+by ``parallel.shard_vocoder_params`` gives each sharded leaf's gradient as
+this rank's block (its gathered copy's gradient, averaged over ``model``),
+and the pre-clip norm counts each block once: the sum of squares over the
+model group plus each replicated leaf once.
+
 The modules are trained in place (what buffer donation buys the JAX step).
 The step runs float32 convolutions and matmuls at full precision, as the
 JAX package pins them for the discriminators and the spectral frontends:
@@ -40,6 +51,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
@@ -47,6 +59,8 @@ from ..core.device import resolve_device
 from ..core.precision import full_precision
 from ..losses import (discriminator_loss, feature_loss, generator_loss,
                       simple_silence_aware_mel_loss)
+from ..parallel.mesh import (MODEL, all_reduce_mean_, axis_group,
+                             sharded_parameters)
 from .stage1 import clip_by_global_norm_
 
 
@@ -64,13 +78,38 @@ def _params(*modules):
     return [p for m in modules for p in m.parameters()]
 
 
-def _adamw_step_(optimizer, params, grads, lr: float, clip: float):
-    """Clip ``grads`` by global norm in place, hand them to ``params``
-    (``.grad`` keeps them until the next step replaces them) and take one
-    AdamW step at ``lr``.  Returns the pre-clip norm."""
+def _sharded_norm(grads, sharded, mesh) -> torch.Tensor:
+    """Global norm of gradients some of which are blocks of leaves sharded
+    over ``model`` (``sharded[i]``): their squares summed over the model
+    group, the replicated leaves' once."""
+    def squares(gs):
+        if not gs:
+            return torch.zeros((), device=grads[0].device)
+        return torch.stack(torch._foreach_norm(gs)).float().square().sum()
+
+    blocks = squares([g for g, s in zip(grads, sharded) if s])
+    dist.all_reduce(blocks, group=axis_group(mesh, MODEL))
+    return torch.sqrt(blocks + squares(
+        [g for g, s in zip(grads, sharded) if not s]))
+
+
+def _adamw_step_(optimizer, params, grads, lr: float, clip: float,
+                 mesh=None, sharded=(), averaged=()):
+    """With a ``mesh``, average ``grads`` (and ``averaged``) over its
+    ``data`` axis; clip them by global norm in place (``sharded``: the
+    parameters that are blocks of a leaf sharded over ``model``), hand them
+    to ``params`` (``.grad`` keeps them until the next step replaces them)
+    and take one AdamW step at ``lr``.  Returns the pre-clip norm."""
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    norm = clip_by_global_norm_(grads, clip)
+    norm = None
+    if mesh is not None:
+        all_reduce_mean_(grads + list(averaged), mesh)
+        blocks = {id(p) for p in sharded}
+        if blocks:
+            norm = _sharded_norm(grads, [id(p) in blocks for p in params],
+                                 mesh)
+    norm = clip_by_global_norm_(grads, clip, norm)
     for p, g in zip(params, grads):
         p.grad = g
     for group in optimizer.param_groups:
@@ -96,6 +135,7 @@ def make_stage2_train_step(
     silence_threshold_db: float = -50.0,
     remat: bool = False,
     device=None,
+    mesh=None,
 ) -> Tuple[Callable, Callable]:
     """Returns ``(init_fn, step_fn)``.
 
@@ -116,6 +156,9 @@ def make_stage2_train_step(
     ``use_multiscale_melloss`` is off).  Metrics: ``loss_disc``,
     ``loss_gen_all``, ``loss_mel`` (divided by lambda), ``loss_fm``,
     ``grad_norm_g`` (pre-clip), 0-d tensors on the device, and ``lr``.
+
+    With ``mesh``, ``batch`` is this rank's block of the global batch and
+    the metrics are global means.
     """
     device = resolve_device(device)
     if use_multiscale_melloss and multiscale_mel_loss is None:
@@ -190,7 +233,8 @@ def make_stage2_train_step(
             d_params = _params(state.mpd, state.mrd)
             d_loss = d_loss_fn(state, y, y_g_hat.detach())
             d_grads = torch.autograd.grad(d_loss, d_params, allow_unused=True)
-            _adamw_step_(state.disc_opt, d_params, d_grads, lr, clip_grad_norm)
+            _adamw_step_(state.disc_opt, d_params, d_grads, lr, clip_grad_norm,
+                         mesh)
 
         # ---- G phase against the updated discriminators
         loss_mel = mel_loss_fn(batch, y, y_g_hat)
@@ -201,15 +245,23 @@ def make_stage2_train_step(
         g_loss = adv + loss_mel
         g_params = _params(state.generator)
         g_grads = torch.autograd.grad(g_loss, g_params, allow_unused=True)
-        grad_norm = _adamw_step_(state.gen_opt, g_params, g_grads, lr,
-                                 clip_grad_norm)
+        losses = [d_loss.detach(), g_loss.detach(), loss_mel.detach(),
+                  loss_fm.detach()]
+        if mesh is not None:
+            # the global means ride along in the G step's all-reduce
+            losses = [x.clone() for x in losses]
+        grad_norm = _adamw_step_(
+            state.gen_opt, g_params, g_grads, lr, clip_grad_norm, mesh,
+            sharded=() if mesh is None else sharded_parameters(
+                state.generator), averaged=losses)
+        d_loss, g_loss, loss_mel, loss_fm = losses
 
         state.step += 1
         metrics = {
-            "loss_disc": d_loss.detach(),
-            "loss_gen_all": g_loss.detach(),
-            "loss_mel": loss_mel.detach() / lambda_melloss,
-            "loss_fm": loss_fm.detach(),
+            "loss_disc": d_loss,
+            "loss_gen_all": g_loss,
+            "loss_mel": loss_mel / lambda_melloss,
+            "loss_fm": loss_fm,
             "grad_norm_g": grad_norm,
             "lr": lr,
         }

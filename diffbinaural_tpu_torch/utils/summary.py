@@ -10,11 +10,18 @@ clip when tensorboardX cannot encode it (no ``soundfile``).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 
 class SummaryLogger:
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: Optional[str]):
+        """``log_dir`` None: a logger that writes nothing (the ranks of a
+        data-parallel job other than rank 0)."""
+        self._w = None
+        if log_dir is None:
+            return
         try:
             from tensorboardX import SummaryWriter
 

@@ -62,7 +62,8 @@ def test_every_module_imports_without_jax():
                 "cli.evaluate_mel_spectrogram_rmse", "cli.test_realbinaural",
                 "cli.test_fairplay", "cli.test_pos",
                 "cli.test_realbinaural_few", "models.norms",
-                "core.advanced_diffusion_config"):
+                "core.advanced_diffusion_config", "parallel",
+                "parallel.mesh"):
         assert f"diffbinaural_tpu_torch.{sub}" in names
     code = (
         "import importlib, sys\n"
@@ -140,7 +141,7 @@ def _no_card():
                                    "test_realbinaural", "test_fairplay",
                                    "test_pos", "test_realbinaural_few",
                                    "evaluate_binaural_dirs",
-                                   "evaluate_mel_rmse_dirs"])
+                                   "evaluate_mel_rmse_dirs", "make_mesh"])
 def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
     _no_card()
     from diffbinaural_tpu_torch.diffusion import GaussianDiffusion
@@ -166,6 +167,7 @@ def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
         evaluate_mel_rmse_dirs
     from diffbinaural_tpu_torch.evaluation.runner import \
         evaluate_binaural_dirs
+    from diffbinaural_tpu_torch.parallel import make_mesh
 
     calls = {
         "build_unet": lambda: build_unet(UnetConfig(dim=16)),
@@ -215,6 +217,7 @@ def test_entry_points_do_not_run_on_the_cpu_unasked(entry):
         "evaluate_binaural_dirs": lambda: evaluate_binaural_dirs("g", "t"),
         "evaluate_mel_rmse_dirs": lambda: evaluate_mel_rmse_dirs("l", "r",
                                                                  "g"),
+        "make_mesh": lambda: make_mesh(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
