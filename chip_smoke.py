@@ -3766,7 +3766,7 @@ def phase_eval_cli(world: str, workdir: str) -> dict:
         TRIM_SAMPLES, evaluate_binaural_pair)
     from diffbinaural_tpu_torch.infer.stage1 import (Stage1Sampler,
                                                      window_starts)
-    from diffbinaural_tpu_torch.utils import device_memory_stats, timed
+    from diffbinaural_tpu_torch.utils import device_memory_stats
 
     frames = int(CLIP_SECONDS * SR) // HOP
     windows = len(window_starts(frames))
@@ -4008,12 +4008,13 @@ def phase_eval_cli(world: str, workdir: str) -> dict:
     for dev, iters in (("cuda", 3), ("cpu", 1)):
         p, g = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in pair)
-        per_file_s[dev] = timed(lambda: evaluate_binaural_pair(
-            p, g, SR, True, True), warmup=1, iters=iters)["mean_s"]
+        secs = [_timed(lambda: evaluate_binaural_pair(
+            p, g, SR, True, True))[1] for _ in range(1 + iters)]
+        per_file_s[dev] = statistics.mean(secs[1:])  # the first warms up
     out["evaluation"] = {
         "files": len(rows) - 1, "columns": rows[0],
         "card_vs_cpu": battery, "battery_s_per_file": per_file_s,
-        "battery_timing": "utils.profiling.timed of evaluate_binaural_pair "
+        "battery_timing": "mean synchronised wall of evaluate_binaural_pair "
                           "(BSS and PESQ) on one trimmed 10 s pair: card 3 "
                           "calls, CPU 1, after a warm-up",
         "worst_card_vs_cpu": worst,

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..utils.profiling import span
 from .schedules import DiffusionSchedule, make_schedule
 
 
@@ -322,25 +323,27 @@ class GaussianDiffusion:
         else:
             pairs = self._dpm_time_pairs(sampling_timesteps, time_grid)
         for time, time_next in pairs.tolist():
-            time_cond = torch.full((batch,), time, dtype=torch.int32,
-                                   device=mix.device)
-            pred_noise, x_start = self.model_predictions(
-                model_fn, img, time_cond, (mono_mix, visual_feature, mix_t),
-                clip_x_start=True,
-            )
-            if time_next < 0:
-                img = x_start
-            else:
-                alpha, alpha_next = ac[time], ac[time_next]
-                sigma = eta * torch.sqrt(
-                    (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha)
+            with span("sampler.step"):
+                time_cond = torch.full((batch,), time, dtype=torch.int32,
+                                       device=mix.device)
+                pred_noise, x_start = self.model_predictions(
+                    model_fn, img, time_cond,
+                    (mono_mix, visual_feature, mix_t), clip_x_start=True,
                 )
-                c = torch.sqrt(1 - alpha_next - sigma**2)
-                step = c * pred_noise
-                if eta > 0:
-                    step = step + sigma * draw()
-                img = x_start * torch.sqrt(alpha_next) + step
-                mix_t = mix * torch.sqrt(alpha_next) + step
+                if time_next < 0:
+                    img = x_start
+                else:
+                    alpha, alpha_next = ac[time], ac[time_next]
+                    sigma = eta * torch.sqrt(
+                        (1 - alpha / alpha_next) * (1 - alpha_next)
+                        / (1 - alpha)
+                    )
+                    c = torch.sqrt(1 - alpha_next - sigma**2)
+                    step = c * pred_noise
+                    if eta > 0:
+                        step = step + sigma * draw()
+                    img = x_start * torch.sqrt(alpha_next) + step
+                    mix_t = mix * torch.sqrt(alpha_next) + step
             if return_all_timesteps:
                 imgs.append(img)
 
@@ -474,21 +477,22 @@ class GaussianDiffusion:
         coeffs = self._dpm_coeffs(pairs)
         one = np.float32(1.0)
         for (time, _), row in zip(pairs.tolist(), coeffs):
-            # float32 coefficients as Python floats (exact): 1 - c_prev is
-            # formed in float32, as the JAX step forms it
-            k_x, k_d, c_prev, m_a, m_s, last = (float(v) for v in row)
-            keep = float(one - row[2])
-            time_cond = torch.full((batch,), time, dtype=torch.int32,
-                                   device=mix.device)
-            pred_noise, x_start = self.model_predictions(
-                model_fn, img, time_cond, (mono_mix, visual_feature, mix_t),
-                clip_x_start=True,
-            )
-            d = keep * x_start + c_prev * prev_x0
-            img = k_x * img + k_d * d
-            if not last:
-                mix_t = m_a * mix + m_s * pred_noise
-            prev_x0 = x_start
+            with span("sampler.step"):
+                # float32 coefficients as Python floats (exact): 1 - c_prev is
+                # formed in float32, as the JAX step forms it
+                k_x, k_d, c_prev, m_a, m_s, last = (float(v) for v in row)
+                keep = float(one - row[2])
+                time_cond = torch.full((batch,), time, dtype=torch.int32,
+                                       device=mix.device)
+                pred_noise, x_start = self.model_predictions(
+                    model_fn, img, time_cond,
+                    (mono_mix, visual_feature, mix_t), clip_x_start=True,
+                )
+                d = keep * x_start + c_prev * prev_x0
+                img = k_x * img + k_d * d
+                if not last:
+                    mix_t = m_a * mix + m_s * pred_noise
+                prev_x0 = x_start
             if return_all_timesteps:
                 imgs.append(img)
 
@@ -503,19 +507,20 @@ class GaussianDiffusion:
         batch = img.shape[0]
         imgs = []
         for i, step in enumerate(range(first_t, -1, -1)):
-            t_b = torch.full((batch,), step, dtype=torch.int32,
-                             device=img.device)
-            _, x_start = self.model_predictions(model_fn, img, t_b, condition,
-                                                clip_x_start=True)
-            x_start = x_start.clamp(0.0, 1.0)
-            mean, _, log_var = self.q_posterior(x_start, img, t_b)
-            if step > 0:
-                z = (torch.randn(img.shape, generator=generator,
-                                 dtype=img.dtype, device=img.device)
-                     if noises is None else noises[i].to(img))
-                img = mean + torch.exp(0.5 * log_var) * z
-            else:
-                img = mean
+            with span("sampler.step"):
+                t_b = torch.full((batch,), step, dtype=torch.int32,
+                                 device=img.device)
+                _, x_start = self.model_predictions(
+                    model_fn, img, t_b, condition, clip_x_start=True)
+                x_start = x_start.clamp(0.0, 1.0)
+                mean, _, log_var = self.q_posterior(x_start, img, t_b)
+                if step > 0:
+                    z = (torch.randn(img.shape, generator=generator,
+                                     dtype=img.dtype, device=img.device)
+                         if noises is None else noises[i].to(img))
+                    img = mean + torch.exp(0.5 * log_var) * z
+                else:
+                    img = mean
             if keep_all:
                 imgs.append(img)
         return img, imgs

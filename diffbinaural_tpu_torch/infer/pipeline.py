@@ -28,6 +28,7 @@ from ..core.device import resolve_device
 from ..core.precision import full_precision
 from ..diffusion import GaussianDiffusion
 from ..parallel.mesh import DATA, all_gather_rows, axis_size, data_rows
+from ..utils.profiling import span
 from .stage1 import (
     MEL_MIN,
     crop_spans,
@@ -135,12 +136,13 @@ class BinauralPipeline:
     def _stitch(self, preds: torch.Tensor) -> torch.Tensor:
         """(n_slots, 2, M, window) normalised predictions -> (2, M, T)
         ln-mels via denormalise -> edge crop -> overlap-average."""
-        preds = denormalize_mel(preds[: self.n_windows])
-        mel = torch.zeros((2, self.num_mels, self.total_frames),
-                          dtype=preds.dtype, device=preds.device)
-        for i, (s, (lo, hi)) in enumerate(zip(self.starts, self._spans)):
-            mel[:, :, s + lo: s + hi] += preds[i, :, :, lo:hi]
-        return mel * self._inv_count[None, None, :]
+        with span("pipeline.stitch"):
+            preds = denormalize_mel(preds[: self.n_windows])
+            mel = torch.zeros((2, self.num_mels, self.total_frames),
+                              dtype=preds.dtype, device=preds.device)
+            for i, (s, (lo, hi)) in enumerate(zip(self.starts, self._spans)):
+                mel[:, :, s + lo: s + hi] += preds[i, :, :, lo:hi]
+            return mel * self._inv_count[None, None, :]
 
     @torch.inference_mode()
     def stitched_mel(self, mono_mel_full, visual_feats,
@@ -152,38 +154,40 @@ class BinauralPipeline:
         (seed 13 when absent).  Under a mesh the one group's x_T is drawn
         at its global shape (1, n_slots, 2, M, window) on every rank, which
         keeps its rows."""
-        mono = _float32(mono_mel_full)
-        if mono.shape[2] != self.total_frames:
-            # a mismatched clip would stitch predictions at wrong positions
-            raise ValueError(
-                f"clip has {mono.shape[2]} frames; this pipeline "
-                f"was built for total_frames={self.total_frames}"
-            )
-        if mono.shape[2] < self.window:  # pad short clips
-            mono = torch.nn.functional.pad(
-                mono, (0, self.window - mono.shape[2]), value=MEL_MIN)
-        feats = _float32(visual_feats)
-        if feats.dim() == 1:
-            feats = feats.expand(self.n_slots, feats.shape[0])
-        elif feats.shape[0] == self.n_slots:
-            pass
-        elif feats.shape[0] == self.n_windows:  # pad with the last window's
-            pad = feats[-1:].expand(self.n_slots - feats.shape[0],
-                                    feats.shape[1])
-            feats = torch.cat([feats, pad], dim=0)
-        else:
-            raise ValueError(
-                f"visual_feats has {feats.shape[0]} rows; expected "
-                f"n_windows={self.n_windows} (or (512,) shared)"
-            )
-        if generator is None and noise is None:
-            generator = torch.Generator(device=self.device).manual_seed(13)
+        with span("pipeline.windows"):
+            mono = _float32(mono_mel_full)
+            if mono.shape[2] != self.total_frames:
+                # a mismatched clip would stitch predictions at wrong positions
+                raise ValueError(
+                    f"clip has {mono.shape[2]} frames; this pipeline "
+                    f"was built for total_frames={self.total_frames}"
+                )
+            if mono.shape[2] < self.window:  # pad short clips
+                mono = torch.nn.functional.pad(
+                    mono, (0, self.window - mono.shape[2]), value=MEL_MIN)
+            feats = _float32(visual_feats)
+            if feats.dim() == 1:
+                feats = feats.expand(self.n_slots, feats.shape[0])
+            elif feats.shape[0] == self.n_slots:
+                pass
+            elif feats.shape[0] == self.n_windows:
+                # pad with the last window's
+                pad = feats[-1:].expand(self.n_slots - feats.shape[0],
+                                        feats.shape[1])
+                feats = torch.cat([feats, pad], dim=0)
+            else:
+                raise ValueError(
+                    f"visual_feats has {feats.shape[0]} rows; expected "
+                    f"n_windows={self.n_windows} (or (512,) shared)"
+                )
+            if generator is None and noise is None:
+                generator = torch.Generator(device=self.device).manual_seed(13)
 
-        wins = self._make_windows(mono.to(self.device))
-        feats = feats.to(self.device)
-        group = (self.n_batches, self.unet_batch)
-        wins_g = wins.reshape(group + tuple(wins.shape[1:]))
-        feat_g = feats.reshape(group + (-1,))
+            wins = self._make_windows(mono.to(self.device))
+            feats = feats.to(self.device)
+            group = (self.n_batches, self.unet_batch)
+            wins_g = wins.reshape(group + tuple(wins.shape[1:]))
+            feat_g = feats.reshape(group + (-1,))
         sample = (self.diffusion.dpm_sample if self.sampler == "dpm++"
                   else self.diffusion.ddim_sample)
         grid = {} if self.time_grid is None else {"time_grid": self.time_grid}
@@ -216,7 +220,9 @@ class BinauralPipeline:
         or tensors on any device.  Returns
         the generator's output on the stitched binaural mels, (2, T*hop),
         on ``device``."""
-        mel = self.stitched_mel(mono_mel_full, visual_feats, generator, noise)
-        wav = self.vocoder(mel)
-        # BigVGAN emits (B, 1, samples); drop the unit channel axis
-        return wav[:, 0] if wav.dim() == 3 and wav.shape[1] == 1 else wav
+        with span("pipeline"):
+            mel = self.stitched_mel(mono_mel_full, visual_feats, generator,
+                                    noise)
+            wav = self.vocoder(mel)
+            # BigVGAN emits (B, 1, samples); drop the unit channel axis
+            return wav[:, 0] if wav.dim() == 3 and wav.shape[1] == 1 else wav

@@ -23,6 +23,7 @@ from ..core.config import VocoderConfig
 from ..core.device import resolve_device
 from ..core.precision import full_precision
 from ..models import BigVGAN, build_vocoder
+from ..utils.profiling import span
 
 
 def detect_and_exclude_zero_frames(
@@ -83,12 +84,17 @@ class Vocoder:
     @full_precision()
     def __call__(self, mel: np.ndarray) -> np.ndarray:
         """mel: (B, num_mels, T) -> (B, T*hop) float32 in [-1, 1]."""
-        b, m, t = mel.shape
-        t_pad = -(-t // self.pad_multiple) * self.pad_multiple
-        mel_in = np.full((b, m, t_pad), np.log(1e-5), dtype=np.float32)
-        mel_in[:, :, :t] = mel
-        y = self.model(torch.from_numpy(mel_in).to(self.device))[:, 0]
-        return y[:, : t * self.hop_size].float().cpu().numpy()
+        with span("vocoder"):
+            b, m, t = mel.shape
+            with span("vocoder.pad"):
+                t_pad = -(-t // self.pad_multiple) * self.pad_multiple
+                mel_in = np.full((b, m, t_pad), np.log(1e-5), dtype=np.float32)
+                mel_in[:, :, :t] = mel
+            with span("vocoder.to_device"):
+                x = torch.from_numpy(mel_in).to(self.device)
+            y = self.model(x)[:, 0]
+            with span("vocoder.to_host"):
+                return y[:, : t * self.hop_size].float().cpu().numpy()
 
     def vocode_binaural(
         self,

@@ -31,6 +31,7 @@ from ..core.config import VocoderConfig
 from ..ops.alias_free_act import fused_alias_free_snake
 from ..ops.snake_conv import (fused_snake_conv, snake_conv_eligible,
                               snake_conv_plannable)
+from ..utils.profiling import span
 
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -302,17 +303,20 @@ class BigVGAN(nn.Module):
                                   dtype=dtype)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        h = self.config
-        x = self.conv_pre(mel)
-        for i in range(len(h.upsample_rates)):
-            x = getattr(self, f"up_{i}")(x)
-            xs = None
-            for j in range(self.num_kernels):
-                out = getattr(self, f"resblock_{i}_{j}")(x)
-                xs = out if xs is None else xs + out
-            x = xs / self.num_kernels
-        x = self.conv_post(self.activation_post(x)).float()
-        return torch.tanh(x) if h.use_tanh_at_final else x.clamp(-1.0, 1.0)
+        with span("generator"):
+            h = self.config
+            x = self.conv_pre(mel)
+            for i in range(len(h.upsample_rates)):
+                x = getattr(self, f"up_{i}")(x)
+                xs = None
+                for j in range(self.num_kernels):
+                    out = getattr(self, f"resblock_{i}_{j}")(x)
+                    xs = out if xs is None else xs + out
+                x = xs / self.num_kernels
+            x = self.conv_post(self.activation_post(x)).float()
+            if h.use_tanh_at_final:
+                return torch.tanh(x)
+            return x.clamp(-1.0, 1.0)
 
 
 class BinauralBigVGAN(nn.Module):

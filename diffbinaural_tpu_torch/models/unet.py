@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .attention import AttentionBlock, MiddleAttentionBlock
 from .layers import Conv2dNHWC, Dense, GroupNormNHWC
 
@@ -233,5 +234,6 @@ class AudioVisualModel(nn.Module):
 
     def forward(self, x, t, condition):
         mix, visual_feature, mix_t = condition
-        return self.net_unet(x, t, x_self_cond=mix, mix_t=mix_t,
-                             visual_feat=visual_feature)
+        with span("unet"):
+            return self.net_unet(x, t, x_self_cond=mix, mix_t=mix_t,
+                                 visual_feat=visual_feature)

@@ -61,6 +61,7 @@ from ..losses import (discriminator_loss, feature_loss, generator_loss,
                       simple_silence_aware_mel_loss)
 from ..parallel.mesh import (MODEL, all_reduce_mean_, axis_group,
                              sharded_parameters)
+from ..utils.profiling import span
 from .stage1 import clip_by_global_norm_
 
 
@@ -211,7 +212,7 @@ def make_stage2_train_step(
         return loss_gen + loss_fm, loss_gen, loss_fm
 
     def step_fn(state: Stage2TrainState, batch: Dict):
-        with full_precision():
+        with span("stage2.step"), full_precision():
             return _step(state, batch)
 
     def _step(state: Stage2TrainState, batch: Dict):
@@ -230,30 +231,33 @@ def make_stage2_train_step(
         if frozen:
             d_loss = zero
         else:
-            d_params = _params(state.mpd, state.mrd)
-            d_loss = d_loss_fn(state, y, y_g_hat.detach())
-            d_grads = torch.autograd.grad(d_loss, d_params, allow_unused=True)
-            _adamw_step_(state.disc_opt, d_params, d_grads, lr, clip_grad_norm,
-                         mesh)
+            with span("stage2.d_phase"):
+                d_params = _params(state.mpd, state.mrd)
+                d_loss = d_loss_fn(state, y, y_g_hat.detach())
+                d_grads = torch.autograd.grad(d_loss, d_params,
+                                              allow_unused=True)
+                _adamw_step_(state.disc_opt, d_params, d_grads, lr,
+                             clip_grad_norm, mesh)
 
         # ---- G phase against the updated discriminators
-        loss_mel = mel_loss_fn(batch, y, y_g_hat)
-        if frozen:
-            adv, loss_gen, loss_fm = zero, zero, zero
-        else:
-            adv, loss_gen, loss_fm = adv_fn(state, y, y_g_hat)
-        g_loss = adv + loss_mel
-        g_params = _params(state.generator)
-        g_grads = torch.autograd.grad(g_loss, g_params, allow_unused=True)
-        losses = [d_loss.detach(), g_loss.detach(), loss_mel.detach(),
-                  loss_fm.detach()]
-        if mesh is not None:
-            # the global means ride along in the G step's all-reduce
-            losses = [x.clone() for x in losses]
-        grad_norm = _adamw_step_(
-            state.gen_opt, g_params, g_grads, lr, clip_grad_norm, mesh,
-            sharded=() if mesh is None else sharded_parameters(
-                state.generator), averaged=losses)
+        with span("stage2.g_phase"):
+            loss_mel = mel_loss_fn(batch, y, y_g_hat)
+            if frozen:
+                adv, loss_gen, loss_fm = zero, zero, zero
+            else:
+                adv, loss_gen, loss_fm = adv_fn(state, y, y_g_hat)
+            g_loss = adv + loss_mel
+            g_params = _params(state.generator)
+            g_grads = torch.autograd.grad(g_loss, g_params, allow_unused=True)
+            losses = [d_loss.detach(), g_loss.detach(), loss_mel.detach(),
+                      loss_fm.detach()]
+            if mesh is not None:
+                # the global means ride along in the G step's all-reduce
+                losses = [x.clone() for x in losses]
+            grad_norm = _adamw_step_(
+                state.gen_opt, g_params, g_grads, lr, clip_grad_norm, mesh,
+                sharded=() if mesh is None else sharded_parameters(
+                    state.generator), averaged=losses)
         d_loss, g_loss, loss_mel, loss_fm = losses
 
         state.step += 1

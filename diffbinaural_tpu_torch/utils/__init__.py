@@ -10,4 +10,4 @@ from .helpers import (
     rms_normalize,
 )
 from .summary import SummaryLogger
-from .profiling import trace, timed, device_memory_stats
+from .profiling import trace, span, device_memory_stats

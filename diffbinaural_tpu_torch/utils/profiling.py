@@ -1,18 +1,49 @@
-"""Profiling and timing helpers — counterpart of
-``diffbinaural_tpu/utils/profiling.py``: a ``torch.profiler`` trace that
-TensorBoard's profile plugin and ``chrome://tracing`` read, wall-clock
-timing that waits for the card, the card's memory statistics, and a FLOP
-count of a function."""
+"""Profiling helpers — counterpart of
+``diffbinaural_tpu/utils/profiling.py``: the program's spans at its layer
+boundaries, a ``torch.profiler`` trace that TensorBoard's profile plugin and
+``chrome://tracing`` read, and the card's memory statistics.
+
+A span is a ``torch.profiler`` range named ``diffbinaural.<layer>``, opened
+only while a profiler records: ranges are stamped on the clock that the
+profiler maps the device's activities onto, so a trace shows which layer the
+host was in when each kernel was launched and while the device sat idle.
+There is no other store of spans; ``trace`` writes them out.
+
+Spans (each opened where the work happens, from any caller):
+
+  * ``pipeline``, ``pipeline.windows``, ``pipeline.stitch`` — a clip
+    request through ``infer.pipeline.BinauralPipeline``, its input checks
+    and windows, its denormalise / crop / overlap-average;
+  * ``sampler.step`` — one step of a sampler in ``diffusion.gaussian``: the
+    time condition, the model call and the update;
+  * ``unet`` — one call of the denoiser, ``models.unet.AudioVisualModel``;
+  * ``generator`` — one forward of ``models.bigvgan.BigVGAN``;
+  * ``vocoder``, ``vocoder.pad``, ``vocoder.to_device``, ``vocoder.to_host``
+    — a request through ``infer.vocoder.Vocoder`` and its host work;
+  * ``stage2.step``, ``stage2.d_phase``, ``stage2.g_phase`` — a stage-2 GAN
+    step and its discriminator and generator phases.
+"""
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import torch
-from torch.utils._pytree import tree_leaves
+
+PREFIX = "diffbinaural."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("unet"): ...`` — a profiler range ``diffbinaural.<name>``
+    while a ``torch.profiler`` session records; otherwise a shared no-op
+    context.  Off, it costs one check of the profiler's state: nothing is
+    recorded or allocated.  Never synchronises and reads no tensor."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(PREFIX + name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -29,31 +60,6 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def _sync(out) -> None:
-    """Wait for the card when any tensor of ``out`` lies on one: the host
-    returns from a CUDA call before the work is done."""
-    if any(isinstance(t, torch.Tensor) and t.is_cuda
-           for t in tree_leaves(out)):
-        torch.cuda.synchronize()
-
-
-def timed(fn: Callable, *args, warmup: int = 1, iters: int = 10,
-          **kwargs) -> Dict[str, float]:
-    """Mean wall-clock seconds per call of ``fn(*args, **kwargs)`` over
-    ``iters`` calls after ``warmup`` calls, synchronised with the card when
-    the result lies on it; ``{"mean_s", "per_sec"}``."""
-    out = None
-    for _ in range(warmup):
-        out = fn(*args, **kwargs)
-    _sync(out)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn(*args, **kwargs)
-    _sync(out)
-    dt = (time.perf_counter() - t0) / iters
-    return {"mean_s": dt, "per_sec": 1.0 / dt}
 
 
 def device_memory_stats(device=None) -> Optional[Dict[str, float]]:
@@ -75,25 +81,3 @@ def device_memory_stats(device=None) -> Optional[Dict[str, float]]:
         "peak_bytes_gb": stats.get("allocated_bytes.all.peak", 0) / 1e9,
         "bytes_limit_gb": total / 1e9,
     }
-
-
-def cost_flops(fn: Callable, *args, **kwargs) -> float:
-    """FLOPs of ``fn(*args, **kwargs)`` by
-    ``torch.utils.flop_counter.FlopCounterMode``, run once on CPU tensors
-    (so the kernels' plain versions run and are counted, as the JAX
-    package counts the interpret-mode trace).
-
-    It counts matrix products, convolutions and attention only: XLA's HLO
-    cost analysis, which the JAX ``hlo_cost_flops`` reads, also counts
-    elementwise operations, and counts a padded convolution's taps inside
-    the input only.  Raises ValueError for a tensor that is not on the
-    CPU."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    for leaf in tree_leaves((args, kwargs)):
-        if isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu":
-            raise ValueError(f"cost_flops runs on CPU tensors, got one on "
-                             f"{leaf.device}")
-    with FlopCounterMode(display=False) as counter:
-        fn(*args, **kwargs)
-    return float(counter.get_total_flops())

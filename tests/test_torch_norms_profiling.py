@@ -3,28 +3,23 @@
 of each output's or statistic's scale, float32; ``BatchNorm``'s running
 statistics over three updates), the dead
 ``core/advanced_diffusion_config.py`` against its JAX copy, and
-``utils/profiling.py`` (``cost_flops`` against the JAX ``hlo_cost_flops``;
-``timed``, ``trace`` and ``device_memory_stats`` on the CPU)."""
+``utils/profiling.py`` (``trace`` with a program span in its file, and
+``device_memory_stats``, on the CPU)."""
 
 import json
 
 import jax
 import numpy as np
-import pytest
 import torch
-import torch.nn.functional as F
 
 from diffbinaural_tpu.core.advanced_diffusion_config import \
     AdvancedDiffusionConfig as JaxAdvancedConfig
 from diffbinaural_tpu.models import norms as jax_norms
-from diffbinaural_tpu.utils.profiling import hlo_cost_flops
 from diffbinaural_tpu_torch.convert import norm_params_from_flax
 from diffbinaural_tpu_torch.core.advanced_diffusion_config import \
     AdvancedDiffusionConfig
 from diffbinaural_tpu_torch.models import ChannelRMSNorm, norms
-from diffbinaural_tpu_torch.utils import profiling
-from diffbinaural_tpu_torch.utils import (device_memory_stats, timed,
-                                          trace)
+from diffbinaural_tpu_torch.utils import device_memory_stats, span, trace
 
 from _torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 from _torch_port_util import t, to_numpy_tree
@@ -149,54 +144,14 @@ def test_advanced_diffusion_config_is_the_jax_copy():
                 JaxAdvancedConfig, name)(), name
 
 
-@pytest.mark.parametrize("case", ["matmul", "conv1d", "conv2d"])
-def test_cost_flops_equals_the_jax_count(case):
-    """A matrix product and unpadded convolutions: FlopCounterMode's count
-    equals XLA's (XLA counts a padded convolution's taps inside the input
-    only; FlopCounterMode counts them all)."""
-    rng = np.random.default_rng(0)
-    if case == "matmul":
-        a, b = rng.standard_normal((8, 16)), rng.standard_normal((16, 4))
-        want = hlo_cost_flops(lambda x, y: x @ y, a.astype(np.float32),
-                              b.astype(np.float32))
-        got = profiling.cost_flops(torch.matmul, t(a), t(b))
-    elif case == "conv1d":
-        x, w = rng.standard_normal((2, 8, 50)), rng.standard_normal((6, 8, 5))
-        want = hlo_cost_flops(lambda x, w: jax.lax.conv_general_dilated(
-            x, w, (1,), "VALID", dimension_numbers=("NCH", "OIH", "NCH")),
-            x.astype(np.float32), w.astype(np.float32))
-        got = profiling.cost_flops(F.conv1d, t(x), t(w))
-    else:
-        x, w = (rng.standard_normal((2, 3, 10, 12)),
-                rng.standard_normal((5, 3, 3, 3)))
-        want = hlo_cost_flops(lambda x, w: jax.lax.conv_general_dilated(
-            x, w, (1, 1), "VALID", dimension_numbers=("NCHW", "OIHW", "NCHW")),
-            x.astype(np.float32), w.astype(np.float32))
-        got = profiling.cost_flops(F.conv2d, t(x), t(w))
-    assert got == want > 0
-
-
-def test_cost_flops_refuses_other_devices():
-    q = torch.empty(4, 4, device="meta")
-    with pytest.raises(ValueError, match="CPU tensors"):
-        profiling.cost_flops(torch.matmul, q, q)
-
-
-def test_timed_trace_and_memory_stats_on_the_cpu(tmp_path):
-    calls = []
-
-    def fn(x):
-        calls.append(1)
-        return x * 2
-
-    out = timed(fn, torch.ones(3), warmup=2, iters=5)
-    assert set(out) == {"mean_s", "per_sec"} and len(calls) == 7
-    assert out["mean_s"] > 0 and out["per_sec"] == pytest.approx(
-        1 / out["mean_s"])
+def test_trace_with_a_span_and_memory_stats_on_the_cpu(tmp_path):
     with trace(str(tmp_path / "prof")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with span("unet"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())
-    assert any("mm" in e.get("name", "") for e in events["traceEvents"])
+    names = [e.get("name", "") for e in events["traceEvents"]]
+    assert any("mm" in n for n in names)
+    assert "diffbinaural.unet" in names
     assert device_memory_stats("cpu") is None
     if not torch.cuda.is_available():
         assert device_memory_stats() is None
